@@ -2,95 +2,194 @@
 //
 // Replaces the Pallas TPU kernel `_moments_kernel` of
 // open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_moments.py (called
-// through `radius_moments`).  For every query point it accumulates the
-// count and the first and second moments of the valid points within
-// `radius`; the wrapper (ops/cuda_moments.py) forms the covariance.  The
-// tile lists come from the same AABB admissibility test as K1, built by
-// the wrapper with plain torch ops.
+// through `radius_moments`).  For every point of each of the K scans of a
+// lag block it returns the number of valid points of the same scan within
+// `radius` and their covariance.  One host call, `moments_launch`, enqueues
+// three kernels: `tile_prepare` and `tile_plan` (tiles.cuh: the scans as
+// SoA rows with their tile boxes, and each query tile's ascending list of
+// admissible ref tiles) and `moments_sweep` below.
 //
-// Design.  Grid (query tiles, K scans of the lag block), one thread per
-// query, 256 queries per block.  Every admissible 1024-point ref tile of
-// the same scan is staged in shared memory (12 KB, SoA).  d2 is computed
-// directly in float32 with the _rn intrinsics, in the plain twin's order,
-// so kernel and twin admit exactly the same neighbours.  The TPU kernel
-// formed d2 from a bf16 hi/lo three-pass matrix product and the moments
-// from a one-hot matmul against a feature array: both were workarounds for
-// the TPU's matrix unit and are dropped.  The ten sums (count, 3 first and
-// 6 second moments) stay in registers and are taken of d = q - p, the
-// offset from the query: |d| <= radius keeps the second moments small, so
-// the covariance m2/n - mean mean^T does not cancel catastrophically the
-// way sums of map-frame coordinates would.
+// What bounds it on this card.  The sweep evaluates (admissible tile pairs
+// x 64 x 128) pairs at 8 float32 operations and a compare for d2, plus 13
+// instructions for the moments of an admitted pair, against about a
+// megabyte moved: it is bound by operations.  As in K1, d2 is formed with
+// the _rn intrinsics in the plain twin's order (no FMA), so kernel and twin
+// admit exactly the same neighbours; the moments themselves use FMAs.
 //
-// Bound on this card.  The kernel reads ~0.2 MB per scan and evaluates
-// (admissible tiles x 256 x 1024) pairs at ~9 f32 operations for d2 plus
-// ~19 for the moments of an admitted pair: it is bound by operations.
-#include <cuda_runtime.h>
+// What the design does about it.
+//  - 64-query and 128-ref tiles: 128 x K blocks of two warps for 8192-point
+//    scans, enough to fill 132 SMs, and tighter boxes that admit a quarter
+//    of the pairs that the TPU kernel's 256 x 1024 tiles do.
+//  - Refs are read from shared memory as float4 rows (three 16-byte
+//    broadcast loads feed four pairs) and arrive by cp.async into a double
+//    buffer, the next tile's copy under this tile's sweep.
+//  - Only a few percent of the swept pairs are admitted, and the lanes of a
+//    warp are Morton neighbours that admit together or not at all: the
+//    moment update sits behind warp votes.  Four refs are taken at once:
+//    their d2 are four independent chains, one vote on the least of them
+//    skips all four with one uniform branch, and otherwise one vote per ref
+//    guards its update, which is branch-free inside (multiplied by the 0/1
+//    admission weight, as the plain twin does).
+//  - The ten sums stay in registers and are taken of d = q - p, the offset
+//    from the query: |d| <= radius keeps the second moments small, so
+//    m2/n - mean mean^T does not cancel the way sums of map-frame
+//    coordinates would.  (The TPU kernel's bf16 three-pass d2 and one-hot
+//    matmul were workarounds for its matrix unit and are not carried over.)
+//  - The epilogue is in the kernel: count f32[K, M] and cov f32[K, M, 3, 3]
+//    are written as the wrapper returns them, in the plain twin's
+//    arithmetic (division, then subtraction, unfused).
+#include <cuda_pipeline.h>
+
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int TQ = 256;
-constexpr int TP = 1024;
-constexpr int NOUT = 10;
+using tiles::TP;
+using tiles::TQ;
 
-__global__ void __launch_bounds__(TQ)
-moments_kernel(const float* __restrict__ q, const float* __restrict__ p,
-               const int* __restrict__ tile_list, const int* __restrict__ tile_count,
-               int nq_tiles, int np_tiles, float r2, float* __restrict__ acc_out) {
-  __shared__ float sx[TP], sy[TP], sz[TP];
-  const int qt = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t m_pad = (size_t)nq_tiles * TQ;
-  const size_t n_pad = (size_t)np_tiles * TP;
-  const size_t qi = (size_t)b * m_pad + (size_t)qt * TQ + tid;
-  const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
-  const float* pb = p + (size_t)b * n_pad * 3;
-  const int row = b * nq_tiles + qt;
-  const int cnt = tile_count[row];
-  const int* list = tile_list + (size_t)row * np_tiles;
-  float n = 0.f, s_x = 0.f, s_y = 0.f, s_z = 0.f;
-  float s_xx = 0.f, s_xy = 0.f, s_xz = 0.f, s_yy = 0.f, s_yz = 0.f, s_zz = 0.f;
-  for (int s = 0; s < cnt; ++s) {
-    const float* src = pb + (size_t)list[s] * TP * 3;
-    __syncthreads();
-    for (int f = tid; f < TP * 3; f += TQ) {
-      const int pt = f / 3, c = f - 3 * pt;
-      float* dst = c == 0 ? sx : (c == 1 ? sy : sz);
-      dst[pt] = src[f];
-    }
-    __syncthreads();
-    for (int j = 0; j < TP; ++j) {
-      const float dx = __fsub_rn(qx, sx[j]);
-      const float dy = __fsub_rn(qy, sy[j]);
-      const float dz = __fsub_rn(qz, sz[j]);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      if (d2 <= r2) {
-        n += 1.f;
-        s_x += dx; s_y += dy; s_z += dz;
-        s_xx += dx * dx; s_xy += dx * dy; s_xz += dx * dz;
-        s_yy += dy * dy; s_yz += dy * dz; s_zz += dz * dz;
-      }
-    }
+constexpr int THREADS = TQ;  // one query per thread
+
+__device__ __forceinline__ void stage(float* buf, const float* __restrict__ soa, size_t n_pad,
+                                      int jt) {
+  for (int c = threadIdx.x; c < 3 * TP / 4; c += THREADS) {
+    const int r = c / (TP / 4), k = c - r * (TP / 4);
+    __pipeline_memcpy_async(buf + r * TP + 4 * k, soa + r * n_pad + (size_t)jt * TP + 4 * k, 16);
   }
-  float* out = acc_out + qi * NOUT;
-  out[0] = n;
-  out[1] = s_x; out[2] = s_y; out[3] = s_z;
-  out[4] = s_xx; out[5] = s_xy; out[6] = s_xz;
-  out[7] = s_yy; out[8] = s_yz; out[9] = s_zz;
+  __pipeline_commit();
+}
+
+struct Sums {
+  float n, x, y, z, xx, xy, xz, yy, yz, zz;
+};
+
+__device__ __forceinline__ float sq_dist(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// Add the ref at offset (dx, dy, dz) from the query where d2 <= r2, if any
+// lane of the warp admits it.
+__device__ __forceinline__ void admit(Sums& s, float dx, float dy, float dz, float d2,
+                                      float r2) {
+  const bool admitted = d2 <= r2;
+  if (!__any_sync(0xffffffffu, admitted)) return;
+  const float w = admitted ? 1.f : 0.f;
+  const float wx = w * dx, wy = w * dy, wz = w * dz;
+  s.n += w;
+  s.x += wx;
+  s.y += wy;
+  s.z += wz;
+  s.xx = fmaf(wx, dx, s.xx);
+  s.xy = fmaf(wx, dy, s.xy);
+  s.xz = fmaf(wx, dz, s.xz);
+  s.yy = fmaf(wy, dy, s.yy);
+  s.yz = fmaf(wy, dz, s.yz);
+  s.zz = fmaf(wz, dz, s.zz);
+}
+
+// Four refs at once: their d2 are independent chains, and one vote on the
+// least of them skips all four where no lane of the warp admits any.
+__device__ __forceinline__ void visit4(Sums& s, float qx, float qy, float qz, float4 x,
+                                       float4 y, float4 z, float r2) {
+  const float ax = __fsub_rn(qx, x.x), ay = __fsub_rn(qy, y.x), az = __fsub_rn(qz, z.x);
+  const float bx = __fsub_rn(qx, x.y), by = __fsub_rn(qy, y.y), bz = __fsub_rn(qz, z.y);
+  const float cx = __fsub_rn(qx, x.z), cy = __fsub_rn(qy, y.z), cz = __fsub_rn(qz, z.z);
+  const float dx = __fsub_rn(qx, x.w), dy = __fsub_rn(qy, y.w), dz = __fsub_rn(qz, z.w);
+  const float a2 = sq_dist(ax, ay, az), b2 = sq_dist(bx, by, bz);
+  const float c2 = sq_dist(cx, cy, cz), d2 = sq_dist(dx, dy, dz);
+  if (!__any_sync(0xffffffffu, fminf(fminf(a2, b2), fminf(c2, d2)) <= r2)) return;
+  admit(s, ax, ay, az, a2, r2);
+  admit(s, bx, by, bz, b2, r2);
+  admit(s, cx, cy, cz, c2, r2);
+  admit(s, dx, dy, dz, d2, r2);
+}
+
+// grid (nq_tiles, batch), THREADS threads.
+__global__ void __launch_bounds__(THREADS)
+moments_sweep_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ center, int m, const float* __restrict__ soa,
+                     int np_tiles, const int* __restrict__ list,
+                     const int* __restrict__ count, float r2, float* __restrict__ count_out,
+                     float* __restrict__ cov_out) {
+  __shared__ __align__(16) float buf[2][3 * TP];
+  const int qt = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int row = b * gridDim.x + qt;
+  const size_t n_pad = (size_t)np_tiles * TP;
+  const float* rows = soa + (size_t)b * 3 * n_pad;
+  const int qi = qt * TQ + tid;
+  // A masked or padding lane sweeps from far away: it admits nothing and
+  // never holds up its warp's vote.
+  float qx = -tiles::FAR, qy = -tiles::FAR, qz = -tiles::FAR;
+  if (qi < m && mask[(size_t)b * m + qi] != 0) {
+    const float* src = xyz + ((size_t)b * m + qi) * 3;
+    qx = __fsub_rn(src[0], center[3 * b]);
+    qy = __fsub_rn(src[1], center[3 * b + 1]);
+    qz = __fsub_rn(src[2], center[3 * b + 2]);
+  }
+  Sums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int cnt = count[row];
+  const int* tile_ids = list + (size_t)row * np_tiles;
+  if (cnt > 0) stage(buf[0], rows, n_pad, tile_ids[0]);
+  for (int t = 0; t < cnt; ++t) {
+    const float* cur = buf[t & 1];
+    if (t + 1 < cnt) {
+      stage(buf[(t + 1) & 1], rows, n_pad, tile_ids[t + 1]);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const float4* X = reinterpret_cast<const float4*>(cur);
+    const float4* Y = X + TP / 4;
+    const float4* Z = Y + TP / 4;
+#pragma unroll 4
+    for (int g = 0; g < TP / 4; ++g) {
+      visit4(s, qx, qy, qz, X[g], Y[g], Z[g], r2);
+    }
+    __syncthreads();  // the sweep is done with cur before a later copy lands in it
+  }
+  if (qi >= m) return;
+  const float denom = fmaxf(s.n, 1.f);
+  const float mx = __fdiv_rn(s.x, denom), my = __fdiv_rn(s.y, denom), mz = __fdiv_rn(s.z, denom);
+  const float cxx = __fsub_rn(__fdiv_rn(s.xx, denom), __fmul_rn(mx, mx));
+  const float cxy = __fsub_rn(__fdiv_rn(s.xy, denom), __fmul_rn(mx, my));
+  const float cxz = __fsub_rn(__fdiv_rn(s.xz, denom), __fmul_rn(mx, mz));
+  const float cyy = __fsub_rn(__fdiv_rn(s.yy, denom), __fmul_rn(my, my));
+  const float cyz = __fsub_rn(__fdiv_rn(s.yz, denom), __fmul_rn(my, mz));
+  const float czz = __fsub_rn(__fdiv_rn(s.zz, denom), __fmul_rn(mz, mz));
+  const size_t o = (size_t)b * m + qi;
+  count_out[o] = s.n;
+  float* cov = cov_out + o * 9;
+  cov[0] = cxx; cov[1] = cxy; cov[2] = cxz;
+  cov[3] = cxy; cov[4] = cyy; cov[5] = cyz;
+  cov[6] = cxz; cov[7] = cyz; cov[8] = czz;
 }
 
 }  // namespace
 
-// q f32[K, nq_tiles*TQ, 3], p f32[K, np_tiles*TP, 3] (contiguous);
-// tile_list int32[K, nq_tiles, np_tiles]; tile_count int32[K, nq_tiles];
-// acc_out f32[K, nq_tiles*TQ, 10].
-extern "C" int moments_launch(const float* q, const float* p, const int* tile_list,
-                              const int* tile_count, int batch, int nq_tiles,
-                              int np_tiles, float r2, float* acc_out, void* stream) {
-  if (batch <= 0 || nq_tiles <= 0) return 0;
-  const dim3 grid(nq_tiles, batch);
-  moments_kernel<<<grid, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, p, tile_list, tile_count, nq_tiles, np_tiles, r2, acc_out);
-  return static_cast<int>(cudaGetLastError());
+// xyz f32[batch, m, 3]; mask u8[batch, m]; center f32[batch, 3]; scratch:
+// soa f32[batch, 3, ceil(m/TP)*TP], pmin/pmax f32[batch, ceil(m/TP), 3], list
+// i32[batch, ceil(m/TQ), ceil(m/TP)], count i32[batch, ceil(m/TQ)];
+// count_out f32[batch, m]; cov_out f32[batch, m, 3, 3].  `enqueued` (host
+// memory, three counters: tile_prepare, tile_plan, moments_sweep) is raised
+// by one for each kernel this call put on the stream.
+extern "C" int moments_launch(const float* xyz, const uint8_t* mask, const float* center,
+                              int batch, int m, float r2, float r2_admit, float* soa,
+                              float* pmin, float* pmax, int* list, int* count,
+                              float* count_out, float* cov_out, void* stream_ptr,
+                              int* enqueued) {
+  if (batch <= 0 || m <= 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int np_tiles = (m + TP - 1) / TP, nq_tiles = (m + TQ - 1) / TQ;
+  cudaError_t err = tiles::launch_prepare(xyz, mask, center, batch, m, soa, pmin, pmax, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++enqueued[0];
+  err = tiles::launch_plan(xyz, mask, center, batch, m, pmin, pmax, np_tiles, r2_admit, list,
+                           count, nullptr, nullptr, nullptr, nullptr, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++enqueued[1];
+  moments_sweep_kernel<<<dim3(nq_tiles, batch), THREADS, 0, stream>>>(
+      xyz, mask, center, m, soa, np_tiles, list, count, r2, count_out, cov_out);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++enqueued[2];
+  return static_cast<int>(err);
 }

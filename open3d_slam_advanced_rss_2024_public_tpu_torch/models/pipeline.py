@@ -185,23 +185,26 @@ def mapper_step_block_shared_ref(state: MapState, scans: PointCloud,
     """``mapper_step_block`` with the two block-level restructurings of the
     JAX package (``pipeline.py:284-374``): preprocessing batched over the
     K scans (K2 runs once at [K, N]); the ICP reference (map-patch crop +
-    Morton sort) built ONCE per block from the state at block start
-    (≙ the reference's periodic reference re-init, Mapper.cpp:349-380),
-    with ``block_ref_margin`` extra radius; and ONE fused insert for the
-    block.  As in the JAX package, the first block after an empty map
-    trusts the odometry estimates and inserts them."""
+    Morton sort, and what the matcher prepares from it) built ONCE per block
+    from the state at block start (≙ the reference's periodic reference
+    re-init, Mapper.cpp:349-380), with ``block_ref_margin`` extra radius;
+    and ONE fused insert for the block.  As in the JAX package, the first
+    block after an empty map trusts the odometry estimates and inserts
+    them."""
     wides, matches = _preprocess(scans, cfg)
     _, grid = scan_processing.crop_submap_and_index(
         state.map.cloud, state.pose[:3, 3], min_radius=0.0,
         max_radius=cfg.crop_max_radius + cfg.block_ref_margin,
         match_dist=cfg.icp.max_correspondence_dist,
         capacity=cfg.map_patch_capacity, build_hash=False)
+    nn_ref = icp_mod.prepare_reference(cfg.icp, grid)
     empty_map = state.map.count() == 0
     pose, last_ins = state.pose, state.last_insertion_pose
     results, Ts, oks = [], [], []
     for k in range(scans.xyz.shape[0]):
         estimate_T = pose @ odom_deltas[k]
-        res = icp_mod.register(matches.map(lambda t: t[k]), grid, estimate_T, cfg.icp)
+        res = icp_mod.register(matches.map(lambda t: t[k]), grid, estimate_T, cfg.icp,
+                               nn_ref)
         pose, insert_ok = _gate(cfg, res, estimate_T, empty_map, last_ins,
                                 insert_enables[k])
         last_ins = torch.where(insert_ok, pose, last_ins)

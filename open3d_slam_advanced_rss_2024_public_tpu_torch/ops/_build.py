@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source compiles with ``nvcc`` into its own shared library with a
+``tiles.cu`` holds the tile-planning kernels on their own, ``nn.cu`` K1 and
+``moments.cu`` K2; the last two include the planning kernels from
+``tiles.cuh`` so that one host call enqueues a plan and its sweep.  Each
+source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds instead of the minutes a ``torch/extension.h``
 translation unit costs.  All sources compile in parallel, at first use,
 into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``).  A library whose source is unchanged is reused.
+``.gitignore``).  A library whose source and headers are unchanged is reused.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -22,7 +25,7 @@ import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("nn", "moments")
+SOURCES = ("tiles", "nn", "moments")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,7 +49,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    tag = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

@@ -11,30 +11,35 @@ included) and their covariance.  Outputs of invalid lanes are garbage;
 callers gate on their mask.  A leading batch dimension carries the K scans
 of a lag block: one launch per block.
 
-What bounds it on an H100 and what the design does about it: see the note
-at the top of ``csrc/moments.cu`` (operation-bound; direct f32 d2 instead
-of the TPU's bf16 three-pass matrix product; moments kept in registers and
-taken relative to the query point).
+One call on a CUDA tensor is one host call that enqueues three kernels
+(``tile_prepare`` and ``tile_plan`` of ``csrc/tiles.cuh``, then the sweep)
+and allocates three buffers; count and covariance come out of the sweep as
+they are returned.
 
-``radius_moments`` launches the kernel for CUDA tensors and uses
+What bounds it on an H100 and what the design does about it: see the note
+at the top of ``csrc/moments.cu``.
+
+``radius_moments`` launches the kernels for CUDA tensors and uses
 ``radius_moments_plain`` only for tensors on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from . import _build
-from .cuda_nn import (TP, TQ, _FAR, _admissible_lists, _demean, _fill_invalid_queries,
-                      _sq_dist, _tile_aabbs)
+from . import _build, cuda_tiles
+from .cuda_nn import _demean, _sq_dist
+from .cuda_tiles import TP, TQ
 
 Tensor = torch.Tensor
 
-# Kernel launches since the last reset.
+# Launches of the sweep kernel since the last reset, one per call of
+# ``radius_moments`` on CUDA tensors.
 launches = 0
+
+# Where the six sums of the upper triangle sit in a row-major 3x3.
+_SYMMETRIC = [0, 1, 2, 1, 3, 4, 2, 4, 5]
 
 
 def reset_launches() -> None:
@@ -42,23 +47,14 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _r2(radius) -> float:
-    r = np.float32(radius)
-    return float(r * r)
-
-
-def _cov_from_acc(acc: Tensor):
+def _count_cov(acc: Tensor):
     """acc [..., 10] = (n, Σd, Σ dd^T upper triangle) with d = q - p ->
-    (count, covariance of the neighbourhood)."""
+    (count, covariance of the neighbourhood), in the sweep's epilogue
+    arithmetic: sums over max(n, 1), then m2 - mean mean^T."""
     count = acc[..., 0]
     denom = torch.clamp(count, min=1.0)[..., None]
     mean = acc[..., 1:4] / denom
-    s = acc[..., 4:10] / denom
-    m2 = torch.stack([
-        torch.stack([s[..., 0], s[..., 1], s[..., 2]], -1),
-        torch.stack([s[..., 1], s[..., 3], s[..., 4]], -1),
-        torch.stack([s[..., 2], s[..., 4], s[..., 5]], -1),
-    ], dim=-2)
+    m2 = (acc[..., 4:10] / denom)[..., _SYMMETRIC].reshape(acc.shape[:-1] + (3, 3))
     return count, m2 - mean[..., :, None] * mean[..., None, :]
 
 
@@ -87,19 +83,15 @@ def radius_moments_plain(xyz: Tensor, mask: Tensor, radius):
     if not batched:
         xyz, mask = xyz[None], mask[None]
     x, p, _ = _demean(xyz, xyz, mask)
-    count, cov = _cov_from_acc(moments_plain(x, p, _r2(radius)))
+    count, cov = _count_cov(moments_plain(x, p, cuda_tiles.r2_of(radius)))
     return (count, cov) if batched else (count[0], cov[0])
 
 
 def _check(xyz: Tensor, mask: Tensor) -> None:
-    if xyz.device.type != "cuda" or mask.device != xyz.device:
-        raise ValueError(f"xyz and mask must be on one CUDA device, got "
-                         f"{xyz.device} and {mask.device}")
-    if xyz.dtype != torch.float32 or mask.dtype != torch.bool:
-        raise TypeError(f"need float32 xyz and bool mask, got {xyz.dtype}, {mask.dtype}")
-    if xyz.dim() != 3 or xyz.shape[-1] != 3 or mask.shape != xyz.shape[:-1]:
+    if xyz.dim() != 3 or mask.dim() != 2:
         raise ValueError(f"need xyz [K, M, 3] and mask [K, M], got "
                          f"{tuple(xyz.shape)} and {tuple(mask.shape)}")
+    cuda_tiles.check_points("xyz", xyz, mask)
 
 
 _launch_fn = None
@@ -108,51 +100,54 @@ _launch_fn = None
 def _kernel():
     global _launch_fn
     if _launch_fn is None:
-        fn = _build.library("moments").moments_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        lib = _build.library("moments")
+        cuda_tiles.check_constants(lib, "moments")
+        fn = lib.moments_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
 
 
-def _prepare_tiles(xyz: Tensor, mask: Tensor, radius):
-    """The wrapper's work before the launch, on [K, M] inputs: de-mean,
-    fill invalid queries, pad refs, build the admissible ref-tile lists.
-    Returns the kernel's arguments (qk, pk, tile_list, tile_count)."""
-    x, p, valid = _demean(xyz, xyz, mask)
-    m = x.shape[1]
-    q_valid = F.pad(valid, (0, (-m) % TQ))
-    qk = _fill_invalid_queries(F.pad(x, (0, 0, 0, (-m) % TQ)), q_valid, TQ).contiguous()
-    pk = F.pad(p, (0, 0, 0, (-m) % TP), value=_FAR).contiguous()
-    q_min, q_max = _tile_aabbs(qk, q_valid, TQ)
-    p_min, p_max = _tile_aabbs(pk, pk[..., 0].abs() < 1e7, TP)
-    tile_list, tile_count = _admissible_lists(q_min, q_max, p_min, p_max, radius)
-    return qk, pk, tile_list.contiguous(), tile_count.contiguous()
-
-
-def _launch(qk: Tensor, pk: Tensor, tile_list: Tensor, tile_count: Tensor, radius):
-    """One launch of the kernel on the current stream -> acc f32[K, M_pad, 10]."""
-    K, nq, np_ = qk.shape[0], qk.shape[1] // TQ, pk.shape[1] // TP
-    acc = torch.empty((K, nq * TQ, 10), dtype=torch.float32, device=qk.device)
-    stream = torch.cuda.current_stream(qk.device).cuda_stream
-    err = _kernel()(qk.data_ptr(), pk.data_ptr(), tile_list.data_ptr(),
-                    tile_count.data_ptr(), K, nq, np_, _r2(radius),
-                    acc.data_ptr(), stream)
-    _build.check(err, "moments_kernel")
-    return acc
+def _launch(xyz: Tensor, mask: Tensor, center: Tensor, radius, with_plan: bool = False):
+    """One call of the launch function on the current stream: the two plan
+    kernels and the sweep -> (count f32[K, M], cov f32[K, M, 3, 3]), and
+    with ``with_plan`` also the plan it swept (tile_list int32[K, M_pad/TQ,
+    M_pad/TP], tile_count int32[K, M_pad/TQ]).  Adds the kernels the call
+    enqueued to the counts."""
+    global launches
+    K, m, _ = xyz.shape
+    nq_tiles, np_tiles = -(-m // TQ), -(-m // TP)
+    count = torch.empty((K, m), dtype=torch.float32, device=xyz.device)
+    cov = torch.empty((K, m, 3, 3), dtype=torch.float32, device=xyz.device)
+    buf, (soa, p_min, p_max, tile_list, tile_count) = cuda_tiles.scratch(
+        xyz.device, K * 3 * np_tiles * TP, K * np_tiles * 3, K * np_tiles * 3,
+        K * nq_tiles * np_tiles, K * nq_tiles)
+    enqueued = (ctypes.c_int * 3)()
+    err = _kernel()(xyz.data_ptr(), mask.data_ptr(), center.data_ptr(), K, m,
+                    cuda_tiles.r2_of(radius), cuda_tiles.admit_r2(radius), soa, p_min, p_max,
+                    tile_list, tile_count, count.data_ptr(), cov.data_ptr(),
+                    cuda_tiles.stream_of(xyz), enqueued)
+    cuda_tiles.prepare_launches += enqueued[0]
+    cuda_tiles.plan_launches += enqueued[1]
+    launches += enqueued[2]
+    _build.check(err, "moments_launch")
+    if with_plan:
+        return (count, cov, cuda_tiles.piece(buf, tile_list, (K, nq_tiles, np_tiles)),
+                cuda_tiles.piece(buf, tile_count, (K, nq_tiles)))
+    return count, cov
 
 
 def radius_moments(xyz: Tensor, mask: Tensor, radius):
     """Per-point neighbourhood count and covariance (module contract)."""
-    global launches
     if xyz.device.type == "cpu" and mask.device.type == "cpu":
         return radius_moments_plain(xyz, mask, radius)
     batched = xyz.dim() == 3
     if not batched:
         xyz, mask = xyz[None], mask[None]
+    xyz, mask = xyz.contiguous(), mask.contiguous()
     _check(xyz, mask)
-    acc = _launch(*_prepare_tiles(xyz, mask, radius), radius)
-    launches += 1
-    count, cov = _cov_from_acc(acc[:, :xyz.shape[1]])
+    center = cuda_tiles.centroid(xyz, mask & (xyz[..., 0].abs() < 1e7))
+    count, cov = _launch(xyz, mask, center, radius)
     return (count, cov) if batched else (count[0], cov[0])

@@ -5,41 +5,51 @@ Replaces the Pallas TPU kernel ``_nn_kernel`` of the JAX package's
 at ``:154`` through ``nn_pallas``, ``:175-242``).  The kernel itself is
 ``csrc/nn.cu``.
 
-Contract (the JAX wrapper's): ``nn(query f32[M,3], ref f32[N,3],
-max_dist) -> (idx int64[M], d2 f32[M])``.  Points with ``|x| >= 1e7`` (the
-mask sentinel) are invalid.  For every query whose nearest valid ref lies
-within ``max_dist`` the result is the exact nearest neighbour, the lowest
-index on an exact distance tie; beyond ``max_dist`` the candidate is
-unspecified and callers gate on ``d2``.  ``d2`` is recomputed from the
-gathered match.
+Contract (the JAX wrapper's): ``nn(query f32[M,3], ref, max_dist) ->
+(idx int64[M], d2 f32[M])``, where ``ref`` is the reference points
+``f32[N,3]`` or an ``NNRef`` prepared from them.  Points with ``|x| >= 1e7``
+(the mask sentinel) are invalid.  For every valid query whose nearest valid
+ref lies within ``max_dist`` the result is the exact nearest neighbour, the
+lowest index on an exact distance tie, and ``d2`` the float32
+``sum_c (q_c - p_c)^2`` of that pair after both were shifted by the valid
+refs' centroid.  Beyond ``max_dist`` the candidate is unspecified and
+callers gate on ``d2``: the plain twin returns the nearest ref whatever its
+distance, the kernel the nearest among the admissible tiles, or index 0
+with ``d2 = +inf`` for a query with none (or an invalid one).
 
-What bounds it on an H100 and what the design does about it: see the
-note at the top of ``csrc/nn.cu`` (operation-bound sweep; shared-memory
-ref tiles; exact f32 with a true (d2, idx) pair instead of the TPU's
-packed-mantissa argmin; no N_MAX chunking).
+The reference side of the search — centroid, padded coordinate rows,
+ref-tile boxes — depends on the refs alone.  ``prepare_ref`` computes it
+once; ICP prepares its reference once per lag block and hands the ``NNRef``
+to every iteration.  A call with a prepared reference is one host call that
+enqueues two kernels (the query-side tile plan and the sweep) and allocates
+three buffers.
 
-``nn`` launches the kernel for CUDA tensors and uses ``nn_plain`` only for
-tensors on the CPU; ``chip_smoke.py`` holds the kernel against
-``nn_plain`` on the card.
+What bounds it on an H100 and what the design does about it: see the note
+at the top of ``csrc/nn.cu``.
+
+``nn`` launches the kernels for CUDA tensors and uses ``nn_plain`` only for
+tensors on the CPU; ``chip_smoke.py`` holds the kernels against ``nn_plain``
+on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional, Union
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from . import _build
+from . import _build, cuda_tiles
+from .cuda_tiles import FAR as _FAR
+from .cuda_tiles import TQ
 
 Tensor = torch.Tensor
 
-TQ = 256     # query tile rows (csrc/nn.cu)
-TP = 1024    # refs per tile (csrc/nn.cu)
-_FAR = 3.0e7  # padded / invalid refs: never admissible, never winning
+# The most blocks one query tile's list of ref tiles is cut into.
+MAX_CHUNKS = 32
 
-# Kernel launches since the last reset (chip_smoke.py reads it to show the
-# main path went through the kernel).
+# Launches of the sweep kernel since the last reset, one per call of ``nn``
+# on CUDA tensors (chip_smoke.py reads it to show the main path made them).
 launches = 0
 
 
@@ -48,37 +58,19 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _tile_aabbs(xyz: Tensor, valid: Tensor, tile: int):
-    """Per-tile AABBs of the valid points: xyz [..., n_tiles*tile, 3] ->
-    (mins, maxs) [..., n_tiles, 3]; empty tiles get (+inf, -inf)."""
-    t = xyz.reshape(xyz.shape[:-2] + (-1, tile, 3))
-    v = valid.reshape(valid.shape[:-1] + (-1, tile, 1))
-    return (torch.where(v, t, float("inf")).amin(dim=-2),
-            torch.where(v, t, float("-inf")).amax(dim=-2))
+@dataclasses.dataclass(frozen=True)
+class NNRef:
+    """A reference prepared for ``nn``.  ``points`` are the refs as given;
+    on a CUDA device ``center`` f32[3] is their valid centroid, ``soa``
+    f32[3, N_pad] the shifted refs as coordinate rows padded with ``_FAR``,
+    and ``p_min``/``p_max`` f32[N_pad/TP, 3] the ref-tile boxes.  On the
+    CPU only ``points`` is set: the plain twin needs nothing prepared."""
 
-
-def _admissible_lists(q_min, q_max, p_min, p_max, max_dist):
-    """Exact AABB-pair lower bounds -> (list int32[..., nq, np],
-    count int32[..., nq]).  Rows hold the admissible ref-tile ids first, in
-    ascending order (a stable sort, as in the JAX package)."""
-    gap = torch.clamp(torch.maximum(q_min[..., :, None, :] - p_max[..., None, :, :],
-                                    p_min[..., None, :, :] - q_max[..., :, None, :]),
-                      min=0.0)
-    lb2 = (gap * gap).sum(-1)
-    r = np.float32(max_dist)
-    adm = lb2 <= float(r * r)
-    order = torch.argsort((~adm).to(torch.int8), dim=-1, stable=True)
-    return order.to(torch.int32), adm.sum(-1, dtype=torch.int32)
-
-
-def _fill_invalid_queries(q: Tensor, valid: Tensor, tile: int) -> Tensor:
-    """Put each tile's valid centroid in place of its invalid queries, so
-    the tile AABBs stay tight (their results are masked by callers)."""
-    t = q.reshape(q.shape[:-2] + (-1, tile, 3))
-    v = valid.reshape(valid.shape[:-1] + (-1, tile, 1))
-    cnt = torch.clamp(v.sum(-2, dtype=torch.float32), min=1.0)
-    fill = torch.where(v, t, 0.0).sum(-2) / cnt
-    return torch.where(v, t, fill[..., None, :]).reshape(q.shape)
+    points: Tensor
+    center: Optional[Tensor] = None
+    soa: Optional[Tensor] = None
+    p_min: Optional[Tensor] = None
+    p_max: Optional[Tensor] = None
 
 
 def _demean(query_xyz: Tensor, ref_xyz: Tensor, ref_mask: Tensor = None):
@@ -89,8 +81,7 @@ def _demean(query_xyz: Tensor, ref_xyz: Tensor, ref_mask: Tensor = None):
     ref_valid = ref_xyz[..., 0].abs() < 1e7
     if ref_mask is not None:
         ref_valid = ref_valid & ref_mask
-    nv = torch.clamp(ref_valid.sum(-1, dtype=torch.float32), min=1.0)
-    center = torch.where(ref_valid[..., None], ref_xyz, 0.0).sum(-2) / nv[..., None]
+    center = cuda_tiles.centroid(ref_xyz, ref_valid)
     q = query_xyz - center[..., None, :]
     r = torch.where(ref_valid[..., None], ref_xyz - center[..., None, :], _FAR)
     return q, r, ref_valid
@@ -118,70 +109,85 @@ def nn_plain(query_xyz: Tensor, ref_xyz: Tensor, max_dist=0.5):
     return idx, _sq_dist(q, r[idx])
 
 
-def _check(query_xyz: Tensor, ref_xyz: Tensor) -> None:
-    for name, t in (("query_xyz", query_xyz), ("ref_xyz", ref_xyz)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 2 or t.shape[1] != 3:
-            raise ValueError(f"{name} must be [N, 3], got {tuple(t.shape)}")
-    if ref_xyz.shape[0] == 0:
-        raise ValueError("ref_xyz is empty")
-    if query_xyz.device != ref_xyz.device:
-        raise ValueError("query_xyz and ref_xyz are on different devices")
+def _check(name: str, t: Tensor) -> None:
+    cuda_tiles.check_points(name, t, dim=2)
 
 
-_launch_fn = None
+_fns = None
 
 
 def _kernel():
-    global _launch_fn
-    if _launch_fn is None:
-        fn = _build.library("nn").nn_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    global _fns
+    if _fns is None:
+        lib = _build.library("nn")
+        cuda_tiles.check_constants(lib, "nn")
+        fn = lib.nn_launch
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        _fns = fn
+    return _fns
 
 
-def _prepare(query_xyz: Tensor, ref_xyz: Tensor, max_dist):
-    """The wrapper's work before the launch: de-mean, fill invalid queries,
-    pad refs, build the admissible ref-tile lists.  Returns the de-meaned
-    (q, r) and the kernel's arguments (qk, pk, tile_list, tile_count)."""
-    q, r, _ = _demean(query_xyz, ref_xyz)
-    m, n = q.shape[0], r.shape[0]
-    q_valid = F.pad(q[:, 0].abs() < 1e7, (0, (-m) % TQ))
-    qk = _fill_invalid_queries(F.pad(q, (0, 0, 0, (-m) % TQ)), q_valid, TQ).contiguous()
-    pk = F.pad(r, (0, 0, 0, (-n) % TP), value=_FAR).contiguous()
-    q_min, q_max = _tile_aabbs(qk, q_valid, TQ)
-    p_min, p_max = _tile_aabbs(pk, pk[:, 0].abs() < 1e7, TP)
-    tile_list, tile_count = _admissible_lists(q_min, q_max, p_min, p_max, max_dist)
-    return q, r, (qk, pk, tile_list.contiguous(), tile_count.contiguous())
+def prepare_ref(ref_xyz: Tensor) -> NNRef:
+    """The reference side of ``nn``, computed once per reference.  The
+    centroid comes from the very torch operations the plain twin uses, so
+    kernel and twin shift by the same float32 vector."""
+    if ref_xyz.device.type == "cpu":
+        return NNRef(points=ref_xyz)
+    ref_xyz = ref_xyz.contiguous()
+    _check("ref_xyz", ref_xyz)
+    if ref_xyz.shape[0] == 0:
+        raise ValueError("ref_xyz is empty")
+    center = cuda_tiles.centroid(ref_xyz, ref_xyz[:, 0].abs() < 1e7)
+    soa, p_min, p_max = cuda_tiles.tile_prepare(ref_xyz[None], None, center[None])
+    return NNRef(points=ref_xyz, center=center, soa=soa[0], p_min=p_min[0], p_max=p_max[0])
 
 
-def _launch(qk: Tensor, pk: Tensor, tile_list: Tensor, tile_count: Tensor):
-    """One launch of the kernel on the current stream -> (idx int32, d2 f32)
-    per padded query."""
-    nq, np_ = qk.shape[0] // TQ, pk.shape[0] // TP
-    idx_k = torch.empty((nq * TQ,), dtype=torch.int32, device=qk.device)
-    d2_k = torch.empty((nq * TQ,), dtype=torch.float32, device=qk.device)
-    stream = torch.cuda.current_stream(qk.device).cuda_stream
-    err = _kernel()(qk.data_ptr(), pk.data_ptr(), tile_list.data_ptr(),
-                    tile_count.data_ptr(), nq, np_, idx_k.data_ptr(),
-                    d2_k.data_ptr(), stream)
-    _build.check(err, "nn_kernel")
-    return idx_k, d2_k
+def tiles_per_block(list_length: int, np_tiles: int) -> int:
+    """Ref tiles one block of the sweep takes from a list of ``list_length``
+    (``nn_sweep_kernel`` derives the same split on the device)."""
+    return max(1, -(-list_length // min(MAX_CHUNKS, np_tiles)))
 
 
-def nn(query_xyz: Tensor, ref_xyz: Tensor, max_dist=0.5):
-    """Nearest neighbour within ``max_dist`` (module contract above)."""
+def _launch(query_xyz: Tensor, ref: NNRef, max_dist, with_plan: bool = False):
+    """One call of the launch function on the current stream: the tile
+    plan and the sweep -> (idx int64[M], d2 f32[M]), and with ``with_plan``
+    also the plan it swept (tile_list int32[M_pad/TQ, N_pad/TP], tile_count
+    int32[M_pad/TQ]).  Adds the kernels the call enqueued to the counts."""
     global launches
-    if query_xyz.device.type == "cpu" and ref_xyz.device.type == "cpu":
-        return nn_plain(query_xyz, ref_xyz, max_dist)
-    _check(query_xyz, ref_xyz)
-    q, r, args = _prepare(query_xyz, ref_xyz, max_dist)
-    idx_k, _ = _launch(*args)
-    launches += 1
-    idx = torch.clamp(idx_k[:q.shape[0]].long(), max=r.shape[0] - 1)
-    return idx, _sq_dist(q, r[idx])
+    m, n = query_xyz.shape[0], ref.points.shape[0]
+    nq_tiles, np_tiles = -(-m // TQ), ref.p_min.shape[0]
+    dev = query_xyz.device
+    idx = torch.empty((m,), dtype=torch.int64, device=dev)
+    d2 = torch.empty((m,), dtype=torch.float32, device=dev)
+    buf, (tile_list, tile_count, tickets, keys) = cuda_tiles.scratch(
+        dev, nq_tiles * np_tiles, nq_tiles, nq_tiles, 2 * nq_tiles * TQ)
+    enqueued = (ctypes.c_int * 2)()
+    err = _kernel()(query_xyz.data_ptr(), m, ref.center.data_ptr(), ref.soa.data_ptr(),
+                    ref.p_min.data_ptr(), ref.p_max.data_ptr(), np_tiles, n,
+                    cuda_tiles.admit_r2(max_dist), min(MAX_CHUNKS, np_tiles), tile_list,
+                    tile_count, keys, tickets, idx.data_ptr(), d2.data_ptr(),
+                    cuda_tiles.stream_of(query_xyz), enqueued)
+    cuda_tiles.plan_launches += enqueued[0]
+    launches += enqueued[1]
+    _build.check(err, "nn_launch")
+    if with_plan:
+        return (idx, d2, cuda_tiles.piece(buf, tile_list, (nq_tiles, np_tiles)),
+                cuda_tiles.piece(buf, tile_count, (nq_tiles,)))
+    return idx, d2
+
+
+def nn(query_xyz: Tensor, ref: Union[Tensor, NNRef], max_dist=0.5):
+    """Nearest neighbour within ``max_dist`` (module contract above)."""
+    points = ref.points if isinstance(ref, NNRef) else ref
+    if query_xyz.device.type == "cpu" and points.device.type == "cpu":
+        return nn_plain(query_xyz, points, max_dist)
+    query_xyz = query_xyz.contiguous()
+    _check("query_xyz", query_xyz)
+    if query_xyz.device != points.device:
+        raise ValueError("query_xyz and ref_xyz are on different devices")
+    if not isinstance(ref, NNRef):
+        ref = prepare_ref(ref)
+    return _launch(query_xyz, ref, max_dist)

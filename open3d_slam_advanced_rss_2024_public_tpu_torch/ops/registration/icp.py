@@ -115,10 +115,21 @@ def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask):
     return w
 
 
-def _match(cfg: ICPConfig, src: Tensor, mask: Tensor, ref_grid: HashGrid):
+def prepare_reference(cfg: ICPConfig, ref_grid: HashGrid) -> Optional[cuda_nn.NNRef]:
+    """What the matcher derives from the reference alone, computed once for
+    every registration against ``ref_grid`` (kernel K1's prepared
+    reference; the brute-force matcher needs nothing)."""
+    if cfg.matcher in KERNEL_MATCHERS:
+        return cuda_nn.prepare_ref(ref_grid.points)
+    return None
+
+
+def _match(cfg: ICPConfig, src: Tensor, mask: Tensor, ref_grid: HashGrid,
+           nn_ref: Optional[cuda_nn.NNRef] = None):
     """Correspondence search -> (ref_pts, ref_nrm, d2, found)."""
     if cfg.matcher in KERNEL_MATCHERS:
-        idx, d2 = cuda_nn.nn(src, ref_grid.points, cfg.max_correspondence_dist)
+        idx, d2 = cuda_nn.nn(src, ref_grid.points if nn_ref is None else nn_ref,
+                             cfg.max_correspondence_dist)
         found = mask & (d2 <= cfg.max_correspondence_dist ** 2)
     else:
         idx, d2, found = bruteforce.nn(src, mask, ref_grid.points,
@@ -136,12 +147,12 @@ def reference_centroid(ref_grid: HashGrid) -> Tensor:
 
 
 def iteration_step(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid,
-                   centroid: Tensor, T: Tensor):
+                   centroid: Tensor, T: Tensor, nn_ref: Optional[cuda_nn.NNRef] = None):
     """One ICP iteration: match -> weigh -> minimize -> compose.
     Returns (T_new, rot_delta, trans_delta, match_ratio, rmse)."""
     src = se3.apply(T, source.xyz)
     src_nrm = se3.rotate(T, source.normals)
-    ref_pts, ref_nrm, d2, found = _match(cfg, src, source.mask, ref_grid)
+    ref_pts, ref_nrm, d2, found = _match(cfg, src, source.mask, ref_grid, nn_ref)
     w = _weights(cfg, d2, found, src_nrm, ref_nrm, slot_mask=source.mask)
     src_c = torch.where(found[:, None], src - centroid, 0.0)
     ref_c = torch.where(found[:, None], ref_pts - centroid, 0.0)
@@ -157,11 +168,17 @@ def iteration_step(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid,
 
 
 def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
-             cfg: ICPConfig = ICPConfig()) -> ICPResult:
+             cfg: ICPConfig = ICPConfig(),
+             nn_ref: Optional[cuda_nn.NNRef] = None) -> ICPResult:
     """Register ``source`` against a prebuilt reference grid; ``init_T``
-    maps the source frame into the reference frame.  No host
-    synchronisation: the stopping test stays on the device."""
+    maps the source frame into the reference frame.  ``nn_ref`` is
+    ``prepare_reference(cfg, ref_grid)`` where the caller registers several
+    scans against one grid; without it the reference is prepared here, once
+    for all iterations.  No host synchronisation: the stopping test stays
+    on the device."""
     check_supported(cfg)
+    if nn_ref is None:
+        nn_ref = prepare_reference(cfg, ref_grid)
     dev = source.device
     centroid = reference_centroid(ref_grid)
     smooth = max(cfg.smooth_length, 1)
@@ -177,7 +194,7 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
 
     for _ in range(cfg.max_iterations):
         active = (it < smooth) | ~converged_of(ring)
-        T_new, rot_d, trans_d, mr, rm = iteration_step(cfg, source, ref_grid, centroid, T)
+        T_new, rot_d, trans_d, mr, rm = iteration_step(cfg, source, ref_grid, centroid, T, nn_ref)
         ring_new = torch.cat([torch.stack([rot_d, trans_d])[None], ring[:-1]])
         T = torch.where(active, T_new, T)
         ring = torch.where(active, ring_new, ring)

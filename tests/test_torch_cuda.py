@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_moments, cuda_nn, hashgrid
+from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn, cuda_tiles,
+                                                                hashgrid)
 from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import pointcloud as pc
 
 
@@ -33,8 +34,12 @@ def test_nn_kernel_matches_twin_on_cuda(cuda_device):
     q = _morton(20, 3000, 20.0, cuda_device)
     p = _morton(21, 9000, 20.0, cuda_device)
     cuda_nn.reset_launches()
+    cuda_tiles.reset_launches()
     ki, kd2 = cuda_nn.nn(q, p, 0.5)
+    # Counted where the kernels are enqueued: the reference's tile_prepare,
+    # then tile_plan and the sweep from inside K1's launch function.
     assert cuda_nn.launches == 1
+    assert (cuda_tiles.prepare_launches, cuda_tiles.plan_launches) == (1, 1)
     pi, pd2 = cuda_nn.nn_plain(q, p, 0.5)
     within = pd2 <= 0.25
     assert torch.equal(ki[within], pi[within])  # bit-identical d2, same tie rule
@@ -58,18 +63,113 @@ def test_nn_kernel_handles_invalid_and_ragged_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+def test_nn_kernel_merges_split_lists_with_the_twins_tie_rule(cuda_device):
+    # Queries in random order: every query tile spans the scene, admits
+    # every ref tile, and its list is cut over many blocks.  The refs twice
+    # over: every query has two exact nearest neighbours 6000 indices apart,
+    # swept by different blocks; the atomic merge must keep the lower index.
+    p = _morton(24, 6000, 12.0, cuda_device)
+    q = _morton(25, 2000, 12.0, cuda_device)
+    q = q[torch.randperm(q.shape[0], device=cuda_device)]
+    twice = torch.cat([p, p])
+    ref = cuda_nn.prepare_ref(twice)
+    _, count, _, _ = cuda_tiles.tile_plan(q[None], None, ref.center[None], ref.p_min[None],
+                                          ref.p_max[None], 0.5)
+    longest = int(count.max())
+    assert longest > cuda_nn.tiles_per_block(longest, ref.p_min.shape[0])  # several blocks
+    cuda_nn.reset_launches()
+    for _ in range(3):  # one prepared reference serves every call
+        ki, kd2 = cuda_nn.nn(q, ref, 0.5)
+    assert cuda_nn.launches == 3
+    pi, pd2 = cuda_nn.nn_plain(q, twice, 0.5)
+    within = pd2 <= 0.25
+    assert within.sum() > 500
+    assert torch.equal(ki[within], pi[within])
+    assert bool((ki[within] < p.shape[0]).all())  # the lower of the two tied indices
+    assert torch.equal(kd2[within], pd2[within])
+
+
+@pytest.mark.cuda
+def test_nn_kernel_gives_no_candidate_an_infinite_distance(cuda_device):
+    # A query far from every ref tile, and an invalid one: index 0, d2 = +inf.
+    p = _morton(26, 3000, 10.0, cuda_device)
+    q = _morton(27, 300, 10.0, cuda_device).clone()
+    q[:64] += 500.0
+    q[100] = pc.SENTINEL
+    ki, kd2 = cuda_nn.nn(q, p, 0.5)
+    assert bool(torch.isinf(kd2[:64]).all()) and bool((ki[:64] == 0).all())
+    assert bool(torch.isinf(kd2[100])) and int(ki[100]) == 0
+    assert ki.dtype == torch.int64 and int(ki.max()) < p.shape[0]
+
+
+@pytest.mark.cuda
+def test_tile_kernels_match_their_plain_versions_on_cuda(cuda_device):
+    xyz = torch.stack([_morton(40 + k, 1500, 12.0, cuda_device) for k in range(2)])
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=cuda_device)
+    mask[:, 2::5] = False
+    xyz[0, 7::9] = pc.SENTINEL
+    center = cuda_tiles.centroid(xyz, mask & (xyz[..., 0].abs() < 1e7))
+    cuda_tiles.reset_launches()
+    k_prep = cuda_tiles.tile_prepare(xyz, mask, center)
+    k_plan = cuda_tiles.tile_plan(xyz, mask, center, k_prep[1], k_prep[2], 0.5)
+    assert (cuda_tiles.prepare_launches, cuda_tiles.plan_launches) == (1, 1)
+    p_prep = cuda_tiles.tile_prepare_plain(xyz, mask, center)
+    p_plan = cuda_tiles.tile_plan_plain(xyz, mask, center, p_prep[1], p_prep[2], 0.5)
+    for a, b in zip(k_prep + k_plan[2:], p_prep + p_plan[2:]):
+        assert torch.equal(a, b)  # rows and boxes: exact
+    # Lists: ascending, and every tile the plain version admits.
+    n_tiles = k_plan[0].shape[-1]
+    slot = torch.arange(n_tiles, device=cuda_device)
+    for (lst, cnt), strict in ((k_plan[:2], True), (p_plan[:2], False)):
+        used = slot < cnt[..., None]
+        if strict:
+            assert bool(((lst[..., 1:] > lst[..., :-1]) | ~used[..., 1:]).all())
+        adm = torch.zeros(lst.shape, dtype=torch.int32, device=cuda_device)
+        adm.scatter_add_(-1, torch.where(used, lst, 0).long(), used.int())
+        if strict:
+            k_adm = adm
+        else:
+            assert bool((k_adm >= adm).all()) and int(adm.max()) == 1
+            assert int(k_adm.sum()) - int(adm.sum()) <= 2  # only on the rounding edge
+
+
+@pytest.mark.cuda
 def test_moments_kernel_matches_twin_on_cuda(cuda_device):
     rng = np.random.default_rng(30)
     xyz = torch.from_numpy(rng.uniform(0, 10.0, (3, 2000, 3)).astype(np.float32)).to(cuda_device)
     mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=cuda_device)
     mask[:, ::6] = False
     cuda_moments.reset_launches()
+    cuda_tiles.reset_launches()
     kc, kcov = cuda_moments.radius_moments(xyz, mask, 0.5)
     assert cuda_moments.launches == 1  # one launch for the whole block
+    assert (cuda_tiles.prepare_launches, cuda_tiles.plan_launches) == (1, 1)
     pc_, pcov = cuda_moments.radius_moments_plain(xyz, mask, 0.5)
     assert torch.equal(kc[mask], pc_[mask])  # same admitted neighbours
     # Sums of up to ~100 terms of <= 0.25 m^2 in another order (and FMAs).
     torch.testing.assert_close(kcov[mask], pcov[mask], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_moments_kernel_handles_ragged_and_sentinel_inputs(cuda_device):
+    # M is no multiple of either tile; a third of the lanes are masked out,
+    # some of them at the sentinel, some at real coordinates; one scan of the
+    # block is wholly masked.
+    xyz = torch.stack([_morton(50 + k, 1931, 8.0, cuda_device) for k in range(3)])
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=cuda_device)
+    mask[:, ::3] = False
+    xyz[:, ::6] = pc.SENTINEL
+    mask[2] = False
+    kc, kcov = cuda_moments.radius_moments(xyz, mask, 0.5)
+    pc_, pcov = cuda_moments.radius_moments_plain(xyz, mask, 0.5)
+    assert kc.shape == mask.shape and kcov.shape == mask.shape + (3, 3)
+    assert float(pc_[mask].max()) > 5
+    assert torch.equal(kc[mask], pc_[mask])
+    torch.testing.assert_close(kcov[mask], pcov[mask], atol=1e-5, rtol=0)
+    assert bool(torch.isfinite(kcov).all())
+    # An unbatched call is the batched call's row.
+    c0, cov0 = cuda_moments.radius_moments(xyz[0], mask[0], 0.5)
+    assert torch.equal(c0, kc[0]) and torch.equal(cov0, kcov[0])
 
 
 @pytest.mark.cuda

@@ -112,6 +112,26 @@ def test_register_kernel_matcher_on_cpu_equals_bruteforce():
     assert int(a.iterations) == int(b.iterations)
 
 
+@pytest.mark.parametrize("matcher", ["cuda", "bruteforce"])
+def test_register_with_prepared_reference_returns_the_same_result(matcher):
+    # What the matcher derives from the reference is prepared once for all
+    # registrations against a grid; handing it in changes nothing.
+    (mx, mn), (sx, sn, sm), _, init = _scene(6, [0.05, 0.02, -0.01], [0.0, 0.003, 0.01])
+    grid = hashgrid.passthrough(pc.PointCloud(torch.from_numpy(mx), torch.from_numpy(mn),
+                                              torch.from_numpy(np.abs(mx[:, 0]) < 1e7)), 0.5)
+    src = pc.PointCloud(torch.from_numpy(sx), torch.from_numpy(sn), torch.from_numpy(sm))
+    cfg = icp.ICPConfig(matcher=matcher)
+    nn_ref = icp.prepare_reference(cfg, grid)
+    assert (nn_ref is None) == (matcher == "bruteforce")
+    if nn_ref is not None:
+        assert nn_ref.points is grid.points
+    a = icp.register(src, grid, torch.from_numpy(init), cfg)
+    b = icp.register(src, grid, torch.from_numpy(init), cfg, nn_ref)
+    for f in ("transform", "iterations", "converged", "match_ratio", "rmse", "diverged"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert int(a.iterations) >= 3
+
+
 def test_outlier_weights_match_jax():
     rng = np.random.default_rng(5)
     n = 3000
