@@ -9,8 +9,21 @@ and K2) against its plain PyTorch twin at the shapes of the main path, then
 drives the main path — ``Mapper.add_range_measurement``
 over the 100-scan synthetic loop with ``bench.py``'s parameters (8192-point scans,
 a 32768-point map patch, a 2^18-slot voxel table, lag-8 blocks) — and checks the
-trajectory against ground truth.  Every phase prints one line; any failure
-ends the run with a non-zero exit.  The second-to-last line is a JSON object
+trajectory against ground truth.  Then it drives the second path, the SLAM
+runtime: ``SlamWrapper.use_pair_for_registration`` ... ``finish_processing``
+over a 48-scan loop closed on its first pose with drifting odometry, 8 m
+submaps and the package's default feature, overlap and RANSAC sizes (submap
+features, odometry constraints, loop-closure proposal, pose-graph solve and
+feedback), the online workers over 12 scans, the stepper on its own
+scan-to-scan odometry with motion compensation, K1 and K2 at the shapes the
+SLAM runtime gives them (16384 x 16384 overlap clouds, scan x scan in the
+odometry, single-scan blocks) and the information matrix with unmatched
+queries against their plain versions, the SLAM runtime on the card against
+itself on the CPU (a closed 16-scan loop with every stage on, and the
+loop-closure stages one by one from a common state at full width), and one
+pose-graph solve of the loop on its own (trips, host time and device
+operations a trip).  Every phase prints one line; any failure ends the run
+with a non-zero exit.  The second-to-last line is a JSON object
 with each kernel's launches on the main path, error against its twin, times and
 bound (``bound_ms`` counts the candidate pairs this run's kernels swept;
 ``jax_tiling_bound_ms`` beside it the pairs of the JAX kernels' coarser tiling,
@@ -172,19 +185,19 @@ def jax_tiling_pairs(cuda_tiles, q, q_valid, p, p_valid, max_dist) -> float:
     return float(count.sum()) * JAX_TQ * JAX_TP
 
 
-def check_nn(torch, cuda_nn, q, r, label, prepared=False):
+def check_nn(torch, cuda_nn, q, r, label, prepared=False, max_dist=MAX_DIST, min_share=0.5):
     """K1 against its twin on queries and refs that may hold sentinel
-    lanes: for every valid query whose NN is within MAX_DIST, the same
+    lanes: for every valid query whose NN is within ``max_dist``, the same
     index except on an exact distance tie, a valid ref, and identical d2.
     Returns (max |d2 error|, share of identical indices)."""
-    ki, kd2 = cuda_nn.nn(q, cuda_nn.prepare_ref(r) if prepared else r, MAX_DIST)
-    pi, pd2 = cuda_nn.nn_plain(q, r, MAX_DIST)
+    ki, kd2 = cuda_nn.nn(q, cuda_nn.prepare_ref(r) if prepared else r, max_dist)
+    pi, pd2 = cuda_nn.nn_plain(q, r, max_dist)
     torch.cuda.synchronize()
     if ki.dtype != torch.int64 or kd2.dtype != torch.float32 or ki.shape != pi.shape:
         fail(f"K1 {label}: returned {ki.dtype}{tuple(ki.shape)}, {kd2.dtype}")
     q_valid = q[:, 0].abs() < 1e7
-    within = q_valid & (pd2 <= MAX_DIST ** 2)
-    if int(within.sum()) < int(q_valid.sum()) // 2:
+    within = q_valid & (pd2 <= max_dist ** 2)
+    if int(within.sum()) < int(q_valid.sum()) * min_share:
         fail(f"K1 {label}: only {int(within.sum())} of {int(q_valid.sum())} valid "
              "queries have a NN in range")
     same = (ki == pi) | (kd2 == pd2)
@@ -192,7 +205,7 @@ def check_nn(torch, cuda_nn, q, r, label, prepared=False):
         fail(f"K1 {label}: {int((~same & within).sum())} indices differ from the twin")
     if not bool((r[ki[within], 0].abs() < 1e7).all()):
         fail(f"K1 {label}: a query within range matched a sentinel ref")
-    if bool((kd2[~q_valid] <= MAX_DIST ** 2).any()):
+    if bool((kd2[~q_valid] <= max_dist ** 2).any()):
         fail(f"K1 {label}: an invalid query passes the distance gate")
     err = float((kd2 - pd2)[within].abs().max())
     if err > 0.0:
@@ -472,6 +485,725 @@ def kernel_checks(torch, dev, gen, world):
     return rows
 
 
+SLAM_SCANS = 48
+SLAM_OVERLAP = 16384
+SLAM_MAP_VOXEL = 0.12
+
+
+def slam_params(scan_points: int, patch: int, submap_points: int, feature_points: int,
+                overlap_points: int, ransac_batch: int):
+    """The loop-closure configuration of ``tests/test_full_slam.py:15-49``
+    with the capacities given."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+
+    return load_parameters({"mapper": {
+        "mapper_localizer": {
+            "is_print_timing_information": False,
+            "is_attempt_loop_closures": True,
+            "scan_to_map_registration": {
+                "min_refinement_fitness": 0.25,
+                "scan_to_map_refinement_type": "PointToPlaneIcp",
+                "icp": {"max_n_iter": 15, "max_correspondence_dist": 0.6},
+                "scan_processing": {
+                    "voxel_size": 0.15, "point_capacity": scan_points,
+                    "scan_cropping": {"cropping_radius_max": 18.0,
+                                      "cropping_radius_min": 0.5}},
+                "map_patch_capacity": patch}},
+        "submaps": {"point_capacity": submap_points, "submap_size": 8.0,
+                    "min_num_range_data": 3, "submaps_num_scan_overlap": 3},
+        "map_builder": {"map_voxel_size": SLAM_MAP_VOXEL},
+        "place_recognition": {
+            "feature_voxel_size": 0.4,
+            "feature_map_normal_estimation_radius": 1.2,
+            "feature_radius": 1.8,
+            "ransac_min_corresondence_set_size": 20,
+            "min_icp_refinement_fitness": 0.4,
+            "max_icp_correspondence_distance": 0.5,
+            "loop_closure_search_radius": 12.0,
+            "min_submaps_between_loop_closures": 0,
+            "feature_point_capacity": feature_points,
+            "overlap_point_capacity": overlap_points,
+            "ransac_batch_size": ransac_batch}}})
+
+
+def span(values) -> str:
+    return f"{min(values)}..{max(values)}" if values else "none"
+
+
+def run_slam(slam, scans, odom, gt0):
+    """Feed scans with their odometry through the offline stepper."""
+    slam.set_initial_transform(gt0)
+    for i, scan in enumerate(scans):
+        slam.use_pair_for_registration(scan, odom[i], 0.1 * i)
+    slam.finish_processing()
+    return np.stack(slam.trajectory_poses)
+
+
+def record_builder_evaluations(pr, cuda_nn, capacity: int):
+    """Wrap the constraint builders' two device evaluations (one odometry
+    edge, one loop-closure candidate) so that each records the K1 launches
+    made inside it and keeps its output row, which holds the valid lanes of
+    its two overlap clouds.  The offline stepper runs every stage on the
+    caller's thread, so the differences are exact.  Returns ``finish``,
+    which puts the functions back and returns the launches by
+    (kind, whether both overlap clouds fill every lane) and the valid-lane
+    counts by kind."""
+    real = {"closure": (pr._lc_candidate_eval, 17), "edge": (pr._odo_edge_eval, 0)}
+    records = []
+
+    def wrap(kind):
+        def inner(*args, **kwargs):
+            before = cuda_nn.launches
+            row = real[kind][0](*args, **kwargs)
+            records.append((kind, cuda_nn.launches - before, row))
+            return row
+        return inner
+    pr._lc_candidate_eval, pr._odo_edge_eval = wrap("closure"), wrap("edge")
+
+    def finish():
+        pr._lc_candidate_eval, pr._odo_edge_eval = real["closure"][0], real["edge"][0]
+        launches = {(kind, full): 0 for kind in real for full in (False, True)}
+        lanes = {kind: [] for kind in real}
+        for kind, n, row in records:
+            at = real[kind][1]
+            valid = [int(v) for v in row[at:at + 2].cpu()]
+            lanes[kind] += valid
+            launches[(kind, min(valid) == capacity)] += n
+        return launches, lanes
+    return finish
+
+
+def slam_loop(torch, dev, gen):
+    """Phase ``slam loop``: the SLAM runtime with loop closure at full
+    width.  Returns (slam, launches of this path, the run's inputs, and the
+    poses, constraints and arguments of its last pose-graph solve)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import place_recognition as pr
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn,
+                                                                    cuda_tiles)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.timing import GLOBAL_STATS
+
+    world = synthetic.cluttered_world(11, extent=34.0, n_objects=50, device=dev)
+    gt = synthetic.loop_trajectory(SLAM_SCANS, radius=10.0, center=(17.0, 0.0), z=1.0)
+    gt.append(gt[0])  # close the loop physically
+    odom = synthetic.perturb_odometry(gt, drift_per_step=0.015, yaw_drift_per_step=0.002,
+                                      seed=3)
+    scans = [synthetic.render_scan(world, gt[i], gen, n_points=N_SCAN, max_range=18.0,
+                                   noise=0.004) for i in range(SLAM_SCANS + 1)]
+    params = slam_params(N_SCAN, N_PATCH, 131072, 8192, SLAM_OVERLAP, 4096)
+    # Warm-up (allocator, cuSOLVER handle) on a run that rolls over once.
+    run_slam(SlamWrapper(params, device=dev), scans[:10], odom, gt[0])
+    torch.cuda.synchronize()
+    GLOBAL_STATS.timers.clear()
+    cuda_nn.reset_launches()
+    cuda_moments.reset_launches()
+    cuda_tiles.reset_launches()
+    slam = SlamWrapper(params, device=dev)
+    finish_record = record_builder_evaluations(pr, cuda_nn, SLAM_OVERLAP)
+    # The graph of every solve with a closure in it, to run the last again
+    # on its own (``pose_graph_solve``).
+    solves = []
+    solve_async = slam.optimization.solve_async
+
+    def keeping(node_poses, **kwargs):
+        solves.append(([np.array(x) for x in node_poses], slam.optimization.to_dict(), kwargs))
+        return solve_async(node_poses, **kwargs)
+    slam.optimization.solve_async = keeping
+    t0 = time.perf_counter()
+    est = run_slam(slam, scans, odom, gt[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    builders, lanes = finish_record()
+    launches = {"nn": cuda_nn.launches, "moments": cuda_moments.launches,
+                "tile_prepare": cuda_tiles.prepare_launches,
+                "tile_plan": cuda_tiles.plan_launches, "builders": builders}
+    from_edges = builders[("edge", False)] + builders[("edge", True)]
+    from_closures = builders[("closure", False)] + builders[("closure", True)]
+    gt_arr, odom_arr = np.stack(gt[:len(est)]), np.stack(odom[:len(est)])
+    ate_est = io.ate_rmse(est, gt_arr, align=False)
+    ate_odom = io.ate_rmse(odom_arr, gt_arr, align=False)
+    stages = {name.split("/")[1]: GLOBAL_STATS.timers[name] for name in (
+        "slam/features", "slam/odom_constraints", "slam/lc_build", "slam/pose_graph_solve",
+        "slam/lc_apply_transforms") if name in GLOBAL_STATS.timers}
+    phase("slam loop", scans=len(est), ms_per_scan=f"{wall / len(est) * 1e3:.3f}",
+          submaps=len(slam.mapper.submaps.submaps), closures=slam.loop_closure_count,
+          ate_odometry_m=f"{ate_odom:.4f}", ate_slam_m=f"{ate_est:.4f}",
+          nn_launches=launches["nn"], nn_launches_odometry_edges=from_edges,
+          nn_launches_loop_closures=from_closures,
+          nn_launches_on_full_overlap_clouds=builders[("edge", True)]
+          + builders[("closure", True)],
+          edge_overlap_lanes=span(lanes["edge"]), closure_overlap_lanes=span(lanes["closure"]),
+          moments_launches=launches["moments"],
+          **{f"{k}_ms": f"{t.total_ms:.1f}/{t.count}" for k, t in stages.items()})
+    if est.shape != (SLAM_SCANS + 1, 4, 4) or not np.isfinite(est).all():
+        fail(f"slam loop: poses of shape {est.shape}, finite={np.isfinite(est).all()}")
+    if len(slam.mapper.submaps.submaps) < 3:
+        fail(f"slam loop: only {len(slam.mapper.submaps.submaps)} submaps")
+    if slam.loop_closure_count < 1:
+        fail("slam loop: no loop closure was found on a closed loop")
+    if not (ate_est < ate_odom and ate_est < 0.5):
+        fail(f"slam loop: ATE {ate_est:.3f} m against the odometry's {ate_odom:.3f} m")
+    if min(from_edges, from_closures) <= 0 or launches["nn"] <= from_edges + from_closures:
+        fail(f"slam loop: K1 launches {launches} (odometry edges, loop-closure candidates "
+             "and mapper all must launch it)")
+    if launches["moments"] < SLAM_SCANS:
+        fail(f"slam loop: K2 launched {launches['moments']} times for {SLAM_SCANS + 1} scans")
+    return slam, launches, (scans, odom, gt, params), solves[-1]
+
+
+def slam_online(torch, dev, gen):
+    """Phase ``slam online``: 12 scans through the worker threads."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+
+    n = 12
+    world = synthetic.cluttered_world(14, extent=24.0, n_objects=24, device=dev)
+    # Travel farther than submap_size (8 m): at least one submap finishes.
+    gt = synthetic.straight_trajectory(n, step=1.1, start=(2.0, 0.0, 1.0))
+    scans = [synthetic.render_scan(world, gt[i], gen, n_points=N_SCAN, max_range=14.0)
+             for i in range(n)]
+    slam = SlamWrapper(slam_params(N_SCAN, N_PATCH, 131072, 8192, SLAM_OVERLAP, 4096),
+                       device=dev)
+    slam.set_initial_transform(gt[0])
+    slam.start_workers()
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            slam.add_odometry_pose(0.1 * i, gt[i])
+            while not slam.add_range_scan(scans[i], 0.1 * i):
+                time.sleep(0.002)
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and (
+                len(slam.trajectory_poses) < n or slam.mapper.submaps.finished_queue):
+            time.sleep(0.01)
+        online_threads = list(slam._feature_compute_threads)
+        slam.finish_processing()
+    finally:
+        slam.stop_workers()
+    wall = time.perf_counter() - t0
+    err = max(np.linalg.norm(p[:3, 3] - gt[i][:3, 3])
+              for i, p in enumerate(slam.trajectory_poses))
+    phase("slam online", scans=n, trajectory_entries=len(slam.trajectory_poses),
+          submaps=len(slam.mapper.submaps.submaps), wall_s=f"{wall:.2f}",
+          max_pose_err_m=f"{err:.4f}", feature_threads=",".join(online_threads) or "none")
+    if len(slam.trajectory_poses) != n or slam._scans_accepted != n:
+        fail(f"slam online: {len(slam.trajectory_poses)} trajectory entries for "
+             f"{slam._scans_accepted} accepted scans")
+    if not (np.diff(np.asarray(slam.trajectory_times)) > 0).all():
+        fail("slam online: trajectory times out of order")
+    if not online_threads or any(t != "slam-features" for t in online_threads):
+        fail(f"slam online: the feature pass ran on {online_threads}")
+    if not any(s.features is not None for s in slam.mapper.submaps.submaps):
+        fail("slam online: no finished submap got its descriptors")
+    if not err < 0.5:
+        fail(f"slam online: pose error {err:.3f} m")
+
+
+def nn_shape_row(torch, label: str, q, r, max_dist: float, launches: int):
+    """K1 against its twin on queries ``q`` and refs ``r`` at ``max_dist``,
+    from raw refs and from a prepared reference, with its times and its
+    bound (the pairs its own tile lists sweep on these inputs).  Prints the
+    phase line and returns the row of the kernels line; ``launches`` is the
+    count of the path that gives K1 this shape."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_nn, cuda_tiles
+
+    err, exact = check_nn(torch, cuda_nn, q, r, label, max_dist=max_dist, min_share=0.05)
+    check_nn(torch, cuda_nn, q, r, label + ", prepared reference", prepared=True,
+             max_dist=max_dist, min_share=0.05)
+    ref = cuda_nn.prepare_ref(r)
+    _, _, _, k_count = cuda_nn._launch(q, ref, max_dist, with_plan=True)
+    pairs = float(k_count.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    ms = graph_ms(lambda: cuda_nn._launch(q, ref, max_dist))
+    wrapper_ms = cuda_ms(lambda: cuda_nn.nn(q, ref, max_dist), reps=50)
+    plain_ms = cuda_ms(lambda: cuda_nn.nn_plain(q, r, max_dist), reps=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(q[None], r[None])[0].argmin(-1), reps=3, warmup=1)
+    bound, by = bound_ms(q.numel() * 4 + r.numel() * 4 + q.shape[0] * (8 + 4),
+                         pairs * K1_OPS_PER_PAIR)
+    phase("K1 nn " + label, shape=f"{q.shape[0]}x{r.shape[0]}",
+          valid=f"{int((q[:, 0].abs() < 1e7).sum())}x{int((r[:, 0].abs() < 1e7).sum())}",
+          max_dist=f"{max_dist:g}", launches=launches, max_abs_err_d2=err,
+          exact_idx_share=f"{exact:.6f}", swept_pairs=f"{pairs:.0f}",
+          ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          cdist_argmin_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.6f}", bound_by=by)
+    return {"name": f"nn ({label})", "route": "cuda",
+            "source": "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/nn.cu",
+            "replaces": "open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_nn.py:154",
+            "launches": launches, "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def slam_own_odometry(torch, dev, gen):
+    """Phase ``slam own odometry``: 8 scans through the stepper with no
+    odometry pose handed in, so that the scan-to-scan ``LidarOdometry``
+    (K1 at scan x scan, K2 over one scan) feeds the mapper's prior, with
+    motion compensation on.  Then K1 against its twin at that shape: two
+    consecutive scans preprocessed as the odometry preprocesses them, at its
+    correspondence distance.  Returns the row of the kernels line."""
+    import dataclasses
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_nn
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+
+    n = 8
+    world = synthetic.cluttered_world(12, extent=20.0, n_objects=25, device=dev)
+    gt = synthetic.straight_trajectory(n, step=0.4, start=(2.0, 0.0, 1.0))
+    scans = [synthetic.render_scan(world, gt[i], gen, n_points=N_SCAN, max_range=15.0,
+                                   noise=0.004) for i in range(n)]
+    base = slam_params(N_SCAN, N_PATCH, 131072, 8192, SLAM_OVERLAP, 4096)
+    extra = load_parameters({
+        "odometry": {"scan_matching": {"cloud_registration_type": "PointToPlaneIcp"},
+                     "scan_processing": {"voxel_size": 0.15, "point_capacity": N_SCAN}},
+        "motion_compensation": {"is_undistort_scan": True, "scan_duration": 0.01}})
+    slam = SlamWrapper(dataclasses.replace(base, odometry=extra.odometry,
+                                           motion_compensation=extra.motion_compensation),
+                       device=dev)
+    slam.set_initial_transform(gt[0])
+    counted = {"nn": 0}
+    add_range_scan = slam.odometry.add_range_scan
+
+    def counting(scan, time):
+        before = cuda_nn.launches
+        ok = add_range_scan(scan, time)
+        counted["nn"] += cuda_nn.launches - before
+        return ok
+    slam.odometry.add_range_scan = counting
+    t0 = time.perf_counter()
+    for i, scan in enumerate(scans):
+        slam.use_pair_for_registration(scan, None, 0.1 * i)
+    slam.finish_processing()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    odom_err = float(np.linalg.norm(slam.odometry.odom_to_range_sensor[:3, 3] - gt[-1][:3, 3]))
+    map_err = float(np.linalg.norm(slam.trajectory_poses[-1][:3, 3] - gt[-1][:3, 3]))
+    phase("slam own odometry", scans=n, ms_per_scan=f"{wall / n * 1e3:.3f}",
+          nn_launches_odometry=counted["nn"], rejected_jumps=slam.odometry.rejected_jumps,
+          low_fitness=slam.odometry.low_fitness, odometry_end_err_m=f"{odom_err:.4f}",
+          mapper_end_err_m=f"{map_err:.4f}")
+    if slam.use_external_odometry or len(slam.trajectory_poses) != n:
+        fail("slam own odometry: the stepper did not run on its own odometry")
+    if counted["nn"] < n - 1:
+        fail(f"slam own odometry: K1 launched {counted['nn']} times from the odometry")
+    if not (odom_err < 0.15 and map_err < 0.05):
+        fail(f"slam own odometry: end error {odom_err:.3f} m (odometry), {map_err:.3f} m (mapper)")
+    # The first trip of a registration: the new scan under the identity
+    # against the scan before it.
+    prev, cur = (slam.odometry._preprocess(scans[i]) for i in (n - 2, n - 1))
+    return nn_shape_row(torch, "odometry, scan x scan", cur.xyz.contiguous(),
+                        prev.xyz.contiguous(), slam.odometry.icp_cfg.max_correspondence_dist,
+                        counted["nn"])
+
+
+def slam_shape_checks(torch, dev, slam, launches, raw_scan):
+    """K1 and K2 at the shapes the SLAM runtime gives them, against their
+    plain versions: the overlap clouds of two neighbouring submaps
+    (16384 x 16384, compacted) with masked lanes at the tail and with every
+    lane filled, each at the loop-closure refinement's 0.5 m and at the
+    odometry edges' 1.5 x map voxel; K2 over a single-scan block; and the
+    information matrix with unmatched queries.  Each K1 case carries the
+    launches that the loop's builders made on such clouds at that radius,
+    and goes into the kernels line if there were any.  Returns the new rows
+    of the kernels line."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import place_recognition as pr
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_tiles,
+                                                                    hashgrid)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import ransac
+
+    source = "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/"
+    jax_ops = "open3d_slam_advanced_rss_2024_public_tpu/ops/"
+    rows = []
+    subs = slam.mapper.submaps.submaps
+    # Two neighbouring submaps, each cut to 9 m around its own centre: in
+    # this 34 m world whole submaps overlap in more points than the capacity
+    # holds, and the compacted clouds then have no masked tail.
+    cut = [s.map.cloud.with_mask(torch.linalg.vector_norm(
+        s.map.cloud.xyz - torch.as_tensor(s.center(), dtype=torch.float32, device=dev),
+        dim=-1) < 9.0) for s in subs[:2]]
+    overlap_voxel = pr.EXPANSION_FACTOR_OVERLAP * SLAM_MAP_VOXEL
+    p_ov, c_ov = pr.overlap_clouds(cut[0], cut[1], overlap_voxel, SLAM_OVERLAP)
+    n_q, n_r = int(p_ov.mask.sum()), int(c_ov.mask.sum())
+    if not (0 < n_q < SLAM_OVERLAP and 0 < n_r < SLAM_OVERLAP):
+        fail(f"K1 overlap: the overlap clouds hold {n_q} and {n_r} of {SLAM_OVERLAP} lanes "
+             "(no masked tail)")
+    p_all, c_all = pr.overlap_clouds(subs[0].map.cloud, subs[1].map.cloud, overlap_voxel,
+                                     SLAM_OVERLAP)
+    if int(p_all.mask.sum()) < SLAM_OVERLAP or int(c_all.mask.sum()) < SLAM_OVERLAP:
+        fail("K1 overlap: the whole submaps' overlap leaves lanes empty")
+    edge_dist = pr.EXPANSION_FACTOR_ICP_CORRESPONDENCE * SLAM_MAP_VOXEL
+    for kind, max_dist in (("closure", 0.5), ("edge", edge_dist)):
+        for full, (a, b) in ((False, (p_ov, c_ov)), (True, (p_all, c_all))):
+            label = f"overlap {max_dist:g} m, " + ("every lane filled" if full else "masked tail")
+            row = nn_shape_row(torch, label, a.xyz.contiguous(), b.xyz.contiguous(), max_dist,
+                               launches["builders"][(kind, full)])
+            if row["launches"] > 0:
+                rows.append(row)
+
+    # K2 over one scan (the offline stepper's blocks hold one scan).
+    blk = scan_processing.preprocess_scan(raw_scan, 0.5, 18.0, 0.15, 1.0, N_SCAN,
+                                          estimate_scan_normals=False).map(lambda t: t[None])
+    kc, kcov = cuda_moments.radius_moments(blk.xyz, blk.mask, RADIUS)
+    pcnt, pcov = cuda_moments.radius_moments_plain(blk.xyz, blk.mask, RADIUS)
+    torch.cuda.synchronize()
+    m = blk.mask
+    if not torch.equal(kc[m], pcnt[m]):
+        fail(f"K2 K=1: {int((kc != pcnt)[m].sum())} neighbourhood counts differ from the twin")
+    err2 = float((kcov - pcov)[m].abs().max())
+    if not err2 <= 1e-5:
+        fail(f"K2 K=1: covariance differs from the twin by {err2} (> 1e-5)")
+    center = cuda_tiles.centroid(blk.xyz, m)
+    _, _, _, k_count2 = cuda_moments._launch(blk.xyz, m, center, RADIUS, with_plan=True)
+    pairs2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    admitted = float(kc[m].sum())
+    ms2 = graph_ms(lambda: cuda_moments._launch(blk.xyz, m, center, RADIUS))
+    wrapper_ms2 = cuda_ms(lambda: cuda_moments.radius_moments(blk.xyz, m, RADIUS))
+    plain_ms2 = cuda_ms(lambda: cuda_moments.radius_moments_plain(blk.xyz, m, RADIUS),
+                        reps=3, warmup=1)
+    bound2, by2 = bound_ms(blk.xyz.numel() * 4 + m.numel() + m.numel() * 4 * (1 + 9),
+                           pairs2 * K2_OPS_PER_PAIR + admitted * K2_OPS_PER_ADMITTED)
+    phase("K2 moments K=1", shape=f"1x{N_SCAN}", valid=int(m.sum()), max_abs_err_cov=err2,
+          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{pairs2:.0f}",
+          ms=f"{ms2:.4f}", wrapper_ms=f"{wrapper_ms2:.4f}", plain_ms=f"{plain_ms2:.4f}",
+          bound_ms=f"{bound2:.6f}", bound_by=by2)
+    rows.append({"name": "moments (single-scan block)", "route": "cuda",
+                 "source": source + "moments.cu", "replaces": jax_ops + "pallas_moments.py:130",
+                 "launches": launches["moments"], "max_abs_err": err2, "ms": ms2,
+                 "wrapper_ms": wrapper_ms2, "plain_ms": plain_ms2, "bound_ms": bound2,
+                 "bound_by": by2, "library_ms": None})
+
+    # The information matrix where some queries have no reference within
+    # max_dist: K1 answers index 0 / +inf there and the twin the nearest
+    # reference at any distance, and both must give the same matrix.
+    far = p_ov.xyz.clone()
+    far[::3] += 40.0
+    grid = hashgrid.passthrough(c_ov, 0.5)
+    eye = torch.eye(4, device=dev)
+    info_k, n_k = ransac.information_matrix_from_point_clouds(far, p_ov.mask, grid, eye, 0.5,
+                                                              matcher="cuda")
+    info_p, n_p = ransac.information_matrix_from_point_clouds(far, p_ov.mask, grid, eye, 0.5,
+                                                              matcher="bruteforce")
+    torch.cuda.synchronize()
+    rel = float((info_k - info_p).abs().max() / info_p.abs().max())
+    phase("information matrix kernel vs twin", matched=f"{int(n_k)}/{n_q}",
+          unmatched_moved=int(p_ov.mask[::3].sum()), max_rel_diff=f"{rel:.3e}")
+    if int(n_k) != int(n_p) or int(n_k) == 0 or not rel <= 1e-5:
+        fail(f"information matrix: kernel and twin differ ({int(n_k)} vs {int(n_p)} matches, "
+             f"relative difference {rel:.3e})")
+    return rows
+
+
+TWIN_SCANS = 16
+
+
+def transform_difference(a: np.ndarray, b: np.ndarray):
+    """(translation m, rotation rad) of a^-1 b.  The angle comes from the
+    skew part and the trace together (atan2), which resolves the small
+    angles that float32 matrices leave: arccos of the trace alone cannot
+    tell anything below 0.3 mrad from zero."""
+    rel = np.linalg.inv(a.astype(np.float64)) @ b.astype(np.float64)
+    R = rel[:3, :3]
+    sin = 0.5 * np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.linalg.norm(rel[:3, 3])), float(np.arctan2(sin, (np.trace(R) - 1) / 2))
+
+
+def edge_differences(edges_a, edges_b):
+    """Largest differences between two lists of graph edges, pair by pair:
+    (translation m, rotation rad, information relative to its largest entry)."""
+    d_trans = d_rot = d_info = 0.0
+    for a, b in zip(edges_a, edges_b):
+        t, r = transform_difference(a.T_source_target, b.T_source_target)
+        d_trans, d_rot = max(d_trans, t), max(d_rot, r)
+        d_info = max(d_info, float(np.abs(a.information - b.information).max()
+                                   / np.abs(b.information).max()))
+    return d_trans, d_rot, d_info
+
+
+def run_slam_keeping_first_feedback(slam, scans, odom, gt0):
+    """``run_slam``; also returns the trajectory and the graph's edges as
+    they stood just before the first pose-graph result was applied (those
+    of the whole run where none was)."""
+    kept = {}
+    check = slam.check_if_optimized_graph_available
+
+    def keeping():
+        if slam.optimized_graph_available and not kept:
+            kept["poses"] = np.stack(slam.trajectory_poses)
+            kept["edges"] = list(slam.optimization.odometry_constraints)
+        check()
+    slam.check_if_optimized_graph_available = keeping
+    est = run_slam(slam, scans, odom, gt0)
+    return est, kept.get("poses", est), kept.get("edges", slam.optimization.odometry_constraints)
+
+
+def slam_kernel_vs_twin(torch, dev):
+    """Phase ``slam kernel path vs twin path``: a 16-scan, 2048-point closed
+    loop (radius 5 m, three rollovers, loop-closure candidates within the
+    12 m search radius) through the SLAM runtime on the card and on the CPU
+    from the same scans, odometry and seeds, every stage on both sides, the
+    stopping tests as the runtime has them.  The two sides differ by the
+    kernels against their twins and by the order of the devices' sums.
+
+    Held to bars up to the first pose-graph feedback, where each side is a
+    chain of registrations: the trajectory within 10 mm (as the Mapper's
+    phase), the graph's odometry edges within 10 mm, 2 mrad and 5% of the
+    information matrix's largest entry (the matrix sums over the overlap
+    points matched within 1.5 x map voxel, and a millimetre of pose moves
+    points across that radius).  What follows is printed and held
+    only to the runtime's own bar (each side's ATE below the odometry's): a
+    loop-closure proposal picks the best of 512 three-point hypotheses by an
+    integer inlier count and refines it by an ICP that stops at 1 cm / 1 mrad
+    steps, so a rounding difference can change which closures a run of
+    this size accepts and moves the closed trajectory by centimetres; the
+    closure's stages are held against the CPU one by one from a common
+    state in ``slam closure stages`` instead."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import ransac
+
+    # The draws themselves, on a mask with holes: the same lanes on both devices.
+    mask = torch.arange(1024) % 3 != 0
+    draws = [ransac.draw_picks(mask.to(d), 512, 256, torch.Generator().manual_seed(5))
+             for d in (dev, "cpu")]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(*draws)):
+        fail("slam kernel path vs twin path: RANSAC draws differ between card and CPU")
+
+    # Scans from a host-side generator of their own: they move neither with
+    # the device nor with the draws that the phases before took.
+    world = synthetic.cluttered_world(11, extent=34.0, n_objects=50, device="cpu")
+    gt = synthetic.loop_trajectory(TWIN_SCANS - 1, radius=5.0, center=(17.0, 0.0), z=1.0)
+    gt.append(gt[0])  # close the loop physically
+    odom = synthetic.perturb_odometry(gt, drift_per_step=0.015, yaw_drift_per_step=0.002,
+                                      seed=3)
+    gen = torch.Generator().manual_seed(8)
+    scans = [synthetic.render_scan(world, gt[i], gen, n_points=2048, max_range=18.0,
+                                   noise=0.004) for i in range(TWIN_SCANS)]
+    params = slam_params(2048, 4096, 8192, 1024, 2048, 512)
+    gpu, cpu = SlamWrapper(params, device=dev), SlamWrapper(params, device="cpu")
+    p_gpu, first_gpu, edges_gpu = run_slam_keeping_first_feedback(
+        gpu, [s.to(dev) for s in scans], odom, gt[0])
+    p_cpu, first_cpu, edges_cpu = run_slam_keeping_first_feedback(cpu, scans, odom, gt[0])
+    n_first = min(len(first_gpu), len(first_cpu))
+    n_edges = min(len(edges_gpu), len(edges_cpu))
+    diff_first = float(np.abs(first_gpu[:n_first, :3, 3] - first_cpu[:n_first, :3, 3]).max())
+    same_edges = [(e.source_id, e.target_id) for e in edges_gpu[:n_edges]] == \
+        [(e.source_id, e.target_id) for e in edges_cpu[:n_edges]]
+    d_trans, d_rot, d_info = edge_differences(edges_gpu[:n_edges], edges_cpu[:n_edges])
+    diff_end = float(np.abs(p_gpu[:, :3, 3] - p_cpu[:, :3, 3]).max())
+    gt_arr = np.stack(gt[:TWIN_SCANS])
+    ate = [float(np.sqrt(np.mean(np.sum((x[:, :3, 3] - gt_arr[:, :3, 3]) ** 2, -1))))
+           for x in (p_gpu, p_cpu, np.stack(odom[:TWIN_SCANS]))]
+    phase("slam kernel path vs twin path", scans=TWIN_SCANS, points=2048,
+          submaps=f"{len(gpu.mapper.submaps.submaps)}/{len(cpu.mapper.submaps.submaps)}",
+          scans_before_first_feedback=f"{len(first_gpu)}/{len(first_cpu)}",
+          max_pose_diff_mm=f"{diff_first * 1e3:.4f}", edges_compared=n_edges,
+          max_edge_diff_mm=f"{d_trans * 1e3:.4f}", max_edge_diff_mrad=f"{d_rot * 1e3:.4f}",
+          max_information_rel_diff=f"{d_info:.3e}",
+          closures=f"{gpu.loop_closure_count}/{cpu.loop_closure_count}",
+          max_pose_diff_after_feedback_mm=f"{diff_end * 1e3:.4f}",
+          ate_card_m=f"{ate[0]:.4f}", ate_cpu_m=f"{ate[1]:.4f}", ate_odometry_m=f"{ate[2]:.4f}")
+    if len(gpu.mapper.submaps.submaps) != len(cpu.mapper.submaps.submaps) or \
+            len(gpu.mapper.submaps.submaps) < 3 or n_edges < 1 or not same_edges:
+        fail("slam kernel path and twin path built different graphs")
+    if n_first < TWIN_SCANS // 2:
+        fail(f"slam kernel path vs twin path: only {n_first} scans before the first feedback")
+    if not diff_first <= 0.01:
+        fail(f"slam kernel path and twin path differ by {diff_first * 1e3:.2f} mm (> 10 mm)")
+    if not (d_trans <= 0.01 and d_rot <= 2e-3 and d_info <= 0.05):
+        fail(f"slam kernel path and twin path: graph edges differ by {d_trans * 1e3:.2f} mm, "
+             f"{d_rot * 1e3:.2f} mrad, information {d_info:.3e}")
+    if min(gpu.loop_closure_count, cpu.loop_closure_count) < 1:
+        fail("slam kernel path vs twin path: a side closed no loop")
+    if not max(ate[0], ate[1]) < ate[2]:
+        fail(f"slam kernel path vs twin path: ATE {ate[0]:.3f} m (card), {ate[1]:.3f} m (CPU) "
+             f"against the odometry's {ate[2]:.3f} m")
+
+
+def submap_on(sm, device):
+    """A copy of a submap with its tensors on ``device``."""
+    import dataclasses
+
+    def moved(vm):
+        return None if vm is None else dataclasses.replace(
+            vm, **{f.name: getattr(vm, f.name).to(device) for f in dataclasses.fields(vm)})
+    return dataclasses.replace(
+        sm, map=moved(sm.map), dense_map=moved(sm.dense_map),
+        feature_cloud=None if sm.feature_cloud is None else sm.feature_cloud.to(device),
+        features=None if sm.features is None else sm.features.to(device),
+        pose=sm.pose.copy(), _center=np.array(sm.center()), _center_copy=None)
+
+
+def slam_closure_stages(torch, dev, slam, params, node_poses, graph, solve_kwargs):
+    """Phase ``slam closure stages``: the loop-closure stages at full width
+    on the card against the CPU, each from the same state, taken from the
+    finished ``slam loop``: the feature pass of one submap; one loop-closure
+    candidate that the loop accepted, evaluated again in full (RANSAC with
+    the same draws, overlap restriction, ICP refinement with K1 or its twin
+    and the stopping test on, information matrix); the loop's last
+    pose-graph solve; and the feedback of its increments onto all submaps.
+    Bars: feature clouds equal lane for lane, descriptors within 1% of
+    their norm on 95% of the lanes; the refined closure within the ICP's own
+    stopping step (10 mm, 2 mrad), fitness within 0.02, information within
+    2%; solved poses within 1 mm and 0.1 mrad; poses after feedback within
+    1e-5 m, moved voxel means within 1e-4 m."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import place_recognition as pr
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import pose_graph
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.submap_collection import (
+        SubmapCollection)
+
+    subs = slam.mapper.submaps.submaps
+    # The newest closure of the last solve: the edge the loop accepted last.
+    closure = graph["loop_closure_constraints"][-1]
+    by_id = {s.submap_id: s for s in subs}
+    cand, query = by_id[closure["source"]], by_id[closure["target"]]
+    place = params.mapper.place_recognition
+    t0 = time.perf_counter()
+
+    # -- features of the query submap, from the same map --------------------
+    feats = {}
+    for d in (dev, "cpu"):
+        sc = SubmapCollection(params.mapper, device=d)
+        sc.submaps = [submap_on(query, d)]
+        sc.finished_queue.append((0, 0.0))
+        sc.compute_features_for_finished()
+        feats[d] = sc.submaps[0]
+    fc, ff = feats[dev].feature_cloud.to("cpu"), feats[dev].features.cpu()
+    hc, hf = feats["cpu"].feature_cloud, feats["cpu"].features
+    m = hc.mask
+    same_lanes = torch.equal(fc.mask, m)
+    xyz_err = float((fc.xyz - hc.xyz)[m].abs().max()) if same_lanes else float("inf")
+    # Lanes whose normals are parallel, or degenerate (zero) on both sides.
+    dots = (fc.normals * hc.normals).sum(-1).abs()
+    none = (fc.normals.abs().sum(-1) == 0) & (hc.normals.abs().sum(-1) == 0)
+    normals_share = float(((dots > 1 - 1e-3) | none)[m].float().mean())
+    rel = torch.linalg.vector_norm(ff - hf, dim=-1) / torch.linalg.vector_norm(hf, dim=-1).clamp(
+        min=1e-9)
+    fpfh_share = float((rel[m] <= 0.01).float().mean())
+
+    # -- one accepted candidate again, from the card's features on both sides
+    voxel = pr.EXPANSION_FACTOR_OVERLAP * SLAM_MAP_VOXEL
+    rows = {}
+    for d in (dev, "cpu"):
+        q, c = submap_on(query, d), submap_on(cand, d)
+        gen = torch.Generator().manual_seed(11)
+        rows[d] = pr._lc_candidate_eval(
+            q.feature_cloud, q.features, c.feature_cloud, c.features, q.map.cloud, c.map.cloud,
+            gen, place.ransac_max_correspondence_dist,
+            place.ransac_correspondence_checker_distance,
+            place.ransac_correspondence_checker_edge_length, voxel,
+            place.max_icp_correspondence_distance, overlap_capacity=place.overlap_point_capacity,
+            refine_cfg=pr.PlaceRecognition(params.mapper).refine_cfg,
+            ransac_batch=place.ransac_batch_size).cpu().numpy()
+    k, h = rows[dev], rows["cpu"]
+    ransac_d = transform_difference(k[:16].reshape(4, 4), h[:16].reshape(4, 4))
+    refined_d = transform_difference(k[19:35].reshape(4, 4), h[19:35].reshape(4, 4))
+    info_d = float(np.abs(k[36:72] - h[36:72]).max() / np.abs(h[36:72]).max())
+
+    # -- the loop's last solve ------------------------------------------------
+    solved = {}
+    for d in (dev, "cpu"):
+        problem = pose_graph.OptimizationProblem.from_dict(graph, device=d)
+        solved[d] = (problem.solve(node_poses, **solve_kwargs), problem.last_switch_weights)
+    solve_d = [transform_difference(solved[dev][0][i], solved["cpu"][0][i]) for i in solved[dev][0]]
+    switch_d = float(np.abs(solved[dev][1] - solved["cpu"][1]).max())
+
+    # -- feedback of the card's increments onto all submaps ------------------
+    moved = {}
+    for d in (dev, "cpu"):
+        sc = SubmapCollection(params.mapper, device=d)
+        sc.submaps = [submap_on(s, d) for s in subs]
+        sc.active_idx = slam.mapper.submaps.active_idx
+        sc.apply_transforms(solved[dev][0])
+        moved[d] = sc
+    pose_d = max(float(np.abs(a.pose - b.pose).max())
+                 for a, b in zip(moved[dev].submaps, moved["cpu"].submaps))
+    cloud_d, same_voxels = 0.0, True
+    for a, b in zip(moved[dev].submaps, moved["cpu"].submaps):
+        ca, cb = a.map.cloud.to("cpu"), b.map.cloud
+        same_voxels &= torch.equal(ca.mask, cb.mask) and a.keys_stale == b.keys_stale
+        if same_voxels:
+            cloud_d = max(cloud_d, float((ca.xyz - cb.xyz)[cb.mask].abs().max()))
+    increment = max(float(np.linalg.norm(dT[:3, 3])) for dT in solved[dev][0].values())
+    phase("slam closure stages", query=query.submap_id, candidate=cand.submap_id,
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          feature_lanes=f"{int(fc.mask.sum())}/{int(m.sum())}", feature_xyz_err=f"{xyz_err:.2e}",
+          normals_same_share=f"{normals_share:.4f}", fpfh_within_1pct_share=f"{fpfh_share:.4f}",
+          ransac_inliers=f"{int(k[16])}/{int(h[16])}",
+          ransac_diff_mm=f"{ransac_d[0] * 1e3:.3f}", ransac_diff_mrad=f"{ransac_d[1] * 1e3:.3f}",
+          overlap_lanes=f"{int(k[17])},{int(k[18])}/{int(h[17])},{int(h[18])}",
+          refined_diff_mm=f"{refined_d[0] * 1e3:.4f}",
+          refined_diff_mrad=f"{refined_d[1] * 1e3:.4f}", fitness=f"{k[35]:.4f}/{h[35]:.4f}",
+          information_rel_diff=f"{info_d:.3e}",
+          solve_diff_mm=f"{max(t for t, _ in solve_d) * 1e3:.4f}",
+          solve_diff_mrad=f"{max(r for _, r in solve_d) * 1e3:.4f}",
+          switch_weight_diff=f"{switch_d:.2e}", largest_increment_m=f"{increment:.4f}",
+          feedback_pose_diff=f"{pose_d:.2e}", feedback_voxel_mean_diff=f"{cloud_d:.2e}")
+    if not (same_lanes and xyz_err <= 1e-5 and normals_share >= 0.98 and fpfh_share >= 0.95):
+        fail("slam closure stages: the feature pass differs between card and CPU")
+    if int(k[16]) < place.ransac_min_corresondence_set_size or \
+            k[35] < place.min_icp_refinement_fitness:
+        fail("slam closure stages: the card rejects a closure that the loop accepted")
+    if not (refined_d[0] <= 0.01 and refined_d[1] <= 2e-3 and abs(k[35] - h[35]) <= 0.02
+            and info_d <= 0.02):
+        fail("slam closure stages: the refined closure differs between card and CPU")
+    if not (max(t for t, _ in solve_d) <= 1e-3 and max(r for _, r in solve_d) <= 1e-4
+            and switch_d <= 1e-2):
+        fail("slam closure stages: the pose-graph solve differs between card and CPU")
+    if not (same_voxels and pose_d <= 1e-5 and cloud_d <= 1e-4):
+        fail("slam closure stages: the feedback differs between card and CPU")
+
+
+def pose_graph_solve(torch, dev, node_poses, graph, solve_kwargs):
+    """Phase ``pose graph solve``: the last solve of the ``slam loop`` (its
+    node poses and constraints as they stood, a closure still uncertain) run
+    again on its own: LM trips dispatched before the polled flag stopped the
+    loop, host time to dispatch them and to wait for the result, and, from a
+    traced repeat, the device operations a trip."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import pose_graph
+
+    trips = {"n": 0}
+    assemble = pose_graph.assemble_normal_equations
+
+    def counting(*args, **kwargs):
+        trips["n"] += 1
+        return assemble(*args, **kwargs)
+
+    def solve():
+        problem = pose_graph.OptimizationProblem.from_dict(graph, device=dev)
+        trips["n"] = 0
+        t0 = time.perf_counter()
+        handle = problem.solve_async(node_poses, **solve_kwargs)
+        t1 = time.perf_counter()
+        increments = problem.resolve_async(handle)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, increments, problem
+
+    pose_graph.assemble_normal_equations = counting
+    try:
+        solve()  # warm-up
+        torch.cuda.synchronize()
+        dispatch_ms, wait_ms, increments, problem = solve()
+        n_trips = trips["n"]
+        by_name, _ = trace_device_ops(torch, solve)
+        traced_trips = trips["n"]
+    finally:
+        pose_graph.assemble_normal_equations = assemble
+    n_ops = sum(c for c, _ in by_name.values())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    moved = max(float(np.linalg.norm(dT[:3, 3])) for dT in increments.values())
+    n_edges = len(problem.odometry_constraints) + len(problem.loop_closure_constraints)
+    phase("pose graph solve", nodes=len(node_poses), edges=n_edges,
+          uncertain_edges=len(problem.loop_closure_constraints),
+          max_iterations=solve_kwargs["max_iterations"], trips=n_trips,
+          dispatch_ms=f"{dispatch_ms:.1f}", dispatch_ms_per_trip=f"{dispatch_ms / n_trips:.2f}",
+          wait_for_result_ms=f"{wait_ms:.1f}", traced_trips=traced_trips, device_ops=n_ops,
+          device_ops_per_trip=f"{n_ops / traced_trips:.0f}", device_busy_ms=f"{busy_ms:.2f}",
+          largest_increment_m=f"{moved:.4f}")
+    if not all(np.isfinite(dT).all() for dT in increments.values()):
+        fail("pose graph solve: an increment is not finite")
+
+
 def main() -> None:
     import torch
 
@@ -584,8 +1316,20 @@ def main() -> None:
     # -- 6. where the time goes (profiled, after the counted run) -------------
     profile_main_path(torch, Mapper, params, scans[:3 * LAG + 1], gt)
 
+    # -- 7. the SLAM runtime: loop closure, online workers, new shapes ---------
+    slam, slam_launches, slam_run, last_solve = slam_loop(torch, dev, gen)
+    new_rows = slam_shape_checks(torch, dev, slam, slam_launches, slam_run[0][-1])
+    slam_online(torch, dev, gen)
+    new_rows.append(slam_own_odometry(torch, dev, gen))
+    slam_kernel_vs_twin(torch, dev)
+    slam_closure_stages(torch, dev, slam, slam_run[3], *last_solve)
+    pose_graph_solve(torch, dev, *last_solve)
+    profile_slam_loop(torch, dev, *slam_run)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        row["launches_slam_loop"] = slam_launches[row["name"]]
+    kernels += new_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -601,15 +1345,50 @@ def _step_along_x(d: float) -> np.ndarray:
 
 def profile_main_path(torch, Mapper, params, scans, gt) -> None:
     """Device time by kernel and the device's busy share over a short run of
-    the main path, from the profiler's trace; the whole table goes to
-    build/chip_smoke_profile.tsv (device us, calls, kernel)."""
+    the main path; the whole table goes to build/chip_smoke_profile.tsv."""
+    mapper = Mapper(params, device="cuda")
+    profile_run(torch, "profile", lambda: run_loop(mapper, scans, gt[:len(scans)]),
+                len(scans), "chip_smoke_profile.tsv")
+
+
+SLAM_TRACE_FROM = 32
+
+
+def profile_slam_loop(torch, dev, scans, odom, gt, params) -> None:
+    """The same for the SLAM runtime's loop-closure run: the first 32 scans
+    run untraced, the closing third of the loop (where the closures, the
+    solves and the feedback happen) and ``finish_processing`` under the
+    profiler; table in build/chip_smoke_profile_slam.tsv."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+
+    slam = SlamWrapper(params, device=dev)
+    slam.set_initial_transform(gt[0])
+    for i in range(SLAM_TRACE_FROM):
+        slam.use_pair_for_registration(scans[i], odom[i], 0.1 * i)
+    before = slam.loop_closure_count
+
+    def closing_third():
+        for i in range(SLAM_TRACE_FROM, len(scans)):
+            slam.use_pair_for_registration(scans[i], odom[i], 0.1 * i)
+        slam.finish_processing()
+    profile_run(torch, "profile slam", closing_third, len(scans) - SLAM_TRACE_FROM,
+                "chip_smoke_profile_slam.tsv")
+    phase("profile slam run", scans=f"{SLAM_TRACE_FROM}..{len(scans) - 1}",
+          submaps=len(slam.mapper.submaps.submaps), closures_before=before,
+          closures_traced=slam.loop_closure_count - before)
+    if slam.loop_closure_count - before < 1:
+        fail("profile slam: the traced part of the loop holds no loop closure")
+
+
+def trace_device_ops(torch, run):
+    """``run`` under the profiler: {kernel or copy name: (calls, device us)}
+    from the trace, and the host's wall time in us."""
     from torch.profiler import ProfilerActivity, profile
 
-    mapper = Mapper(params, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_loop(mapper, scans, gt[:len(scans)])
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     trace = OUT / "chip_smoke_trace.json"
@@ -620,25 +1399,34 @@ def profile_main_path(torch, Mapper, params, scans, gt) -> None:
             calls, us = by_name.get(ev["name"], (0, 0.0))
             by_name[ev["name"]] = (calls + 1, us + float(ev.get("dur", 0.0)))
     trace.unlink()
+    return by_name, wall_us
+
+
+def profile_run(torch, label: str, run, n_scans: int, tsv_name: str) -> None:
+    """Device time by kernel and the device's busy share over ``run``, from
+    the profiler's trace; the whole table (device us, calls, kernel) goes to
+    build/<tsv_name>."""
+    by_name, wall_us = trace_device_ops(torch, run)
     busy = sum(us for _, us in by_name.values())
     if busy <= 0.0:
-        fail("profile: the trace holds no device activity")
+        fail(f"{label}: the trace holds no device activity")
     n_ops = sum(c for c, _ in by_name.values())
-    phase("profile", scans=len(scans), wall_ms=f"{wall_us / 1e3:.1f}",
+    phase(label, scans=n_scans, wall_ms=f"{wall_us / 1e3:.1f}",
           device_busy_ms=f"{busy / 1e3:.1f}", busy_share=f"{busy / wall_us:.3f}",
-          device_ops=n_ops, device_ops_per_scan=f"{n_ops / len(scans):.0f}")
-    for label, kernel_names in (("K1", ("nn_sweep_kernel",)), ("K2", ("moments_sweep_kernel",)),
-                                ("tiles", ("tile_plan_kernel", "tile_prepare_kernel"))):
+          device_ops=n_ops, device_ops_per_scan=f"{n_ops / n_scans:.0f}")
+    for kernel_label, kernel_names in (("K1", ("nn_sweep_kernel",)),
+                                       ("K2", ("moments_sweep_kernel",)),
+                                       ("tiles", ("tile_plan_kernel", "tile_prepare_kernel"))):
         hits = [(c, us) for name, (c, us) in by_name.items()
                 if any(k in name for k in kernel_names)]
-        phase(f"profile {label}", launches=sum(c for c, _ in hits),
+        phase(f"{label} {kernel_label}", launches=sum(c for c, _ in hits),
               device_ms=f"{sum(us for _, us in hits) / 1e3:.3f}",
               share=f"{sum(us for _, us in hits) / busy:.3f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    (OUT / "chip_smoke_profile.tsv").write_text("".join(
+    (OUT / tsv_name).write_text("".join(
         f"{us:.1f}\t{calls}\t{name}\n" for name, (calls, us) in ranked))
     for name, (calls, us) in ranked[:10]:
-        phase("profile top", kernel=name[:70].replace(" ", "_"), calls=calls,
+        phase(f"{label} top", kernel=name[:70].replace(" ", "_"), calls=calls,
               device_ms=f"{us / 1e3:.3f}", share=f"{us / busy:.3f}")
 
 

@@ -1,9 +1,10 @@
 """Synthetic LiDAR worlds and trajectories.
 
-Counterpart of ``cluttered_world``, ``render_scan`` and ``loop_trajectory``
-of the JAX package's ``frontends/synthetic.py``: a ground plane with
-randomly sized and rotated boxes, cylinders and spheres, scanned by a
-virtual LiDAR along a circular loop.  The world is drawn on the host from
+Counterpart of ``cluttered_world``, ``render_scan``, ``loop_trajectory``,
+``straight_trajectory`` and ``perturb_odometry`` of the JAX package's
+``frontends/synthetic.py``: a ground plane with randomly sized and rotated
+boxes, cylinders and spheres, scanned by a virtual LiDAR along a circular
+loop or a straight line, with a drifting odometry source.  The world is drawn on the host from
 a numpy seed; scans are drawn on the world's device from a
 ``torch.Generator``.  The random bits differ from the JAX package's; the
 geometry and its statistics are the same.
@@ -18,6 +19,7 @@ import torch
 from ..ops import generators
 from ..utils import se3
 from ..utils.pointcloud import PointCloud, compact, make_cloud
+from ..utils.timebuf import _so3_exp
 
 
 def _yaw(yaw: float) -> np.ndarray:
@@ -82,3 +84,36 @@ def loop_trajectory(n_steps: int, radius: float = 14.0,
         T[:3, 3] = [center[0] + radius * np.cos(theta), center[1] + radius * np.sin(theta), z]
         poses.append(T)
     return poses
+
+
+def straight_trajectory(n_steps: int, step: float = 0.4, yaw_rate: float = 0.0,
+                        start: Tuple[float, float, float] = (2.0, 0.0, 1.2)) -> List[np.ndarray]:
+    """Constant-velocity poses marching along +x (with optional yaw drift)."""
+    dT = np.eye(4)
+    dT[:3, :3] = _yaw(yaw_rate)
+    dT[:3, 3] = [step, 0.0, 0.0]
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = start
+    poses = []
+    for _ in range(n_steps):
+        poses.append(T.copy())
+        T = (T @ dT).astype(np.float32)
+    return poses
+
+
+def perturb_odometry(poses: List[np.ndarray], drift_per_step: float = 0.002,
+                     yaw_drift_per_step: float = 0.0005, seed: int = 0) -> List[np.ndarray]:
+    """Integrate noisy relative motions: a drifting odometry source (what
+    the reference consumes from an external estimator).  The noise comes
+    from ``np.random.RandomState(seed)`` in the JAX package's order."""
+    rng = np.random.RandomState(seed)
+    out = [poses[0].copy()]
+    for i in range(1, len(poses)):
+        rel = np.linalg.inv(poses[i - 1]) @ poses[i]
+        noise_t = drift_per_step * rng.randn(3)
+        noise_w = yaw_drift_per_step * rng.randn(3)
+        dN = np.eye(4)
+        dN[:3, :3] = _so3_exp(noise_w)
+        dN[:3, 3] = noise_t
+        out.append((out[-1] @ rel @ dN).astype(np.float32))
+    return out

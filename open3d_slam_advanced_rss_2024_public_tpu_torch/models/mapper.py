@@ -224,8 +224,14 @@ class Mapper:
             self.is_new_value_set = True
 
     def loop_closure_update(self, correction: np.ndarray) -> None:
-        raise NotImplementedError(
-            "loop-closure feedback is not ported yet (ROADMAP §1 item 16)")
+        """≙ Mapper::loopClosureUpdate (Mapper.cpp:92-95): apply the
+        pose-graph correction to the current and previous refined pose."""
+        with self._lock:
+            self.materialize()
+            c = np.asarray(correction, dtype=np.float32)
+            self.map_to_range_sensor = c @ self.map_to_range_sensor
+            self.map_to_range_sensor_prev = c @ self.map_to_range_sensor_prev
+            self.last_insertion_pose = c @ self.last_insertion_pose
 
     def poll(self) -> None:
         """Online idle tick: dispatch the partial block once the device

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``models/scan_processing.py`` (reference
 ScanToMapRegistration.cpp:36-96): wide crop -> Morton voxel downsample ->
-radius PCA normals (kernel K2) -> narrow crop, and the per-block map-patch
+PCA normals (kernel K2, or kNN) -> narrow crop, and the per-block map-patch
 crop that builds the ICP reference.  Every function takes a leading batch
 dimension: the JAX package ``vmap``s preprocessing over the K scans of a
 lag block, so that K2 runs once per block at [K, N].
@@ -21,13 +21,11 @@ def resolve_normal_engine(name: str) -> str:
     """"auto" -> the radius-moments engine (kernel K2) on every device.
     The JAX package sends CPU and GPU to kNN normals; the port's "auto"
     resolves to its hand-written kernel instead (its plain twin on CPU
-    tensors).  The kNN engine is not ported yet."""
+    tensors), and "knn" selects the kNN engine."""
     if name in ("auto", "moments", "moments_interpret"):
         return "moments"
     if name == "knn":
-        raise NotImplementedError(
-            "kNN normals are not ported yet (ROADMAP §1, slice 2: bruteforce.knn "
-            "and normals.estimate_normals)")
+        return "knn"
     raise ValueError(f"unknown normal engine: {name!r}")
 
 
@@ -48,6 +46,8 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
     out = filters.voxel_downsample(scan, voxel_size, capacity, order="morton")
     if estimate_scan_normals and engine == "moments":
         out = normals.estimate_normals_radius(out, radius=normal_radius)
+    elif estimate_scan_normals:
+        out = normals.estimate_normals(out, radius=normal_radius, k=normal_knn)
     return out
 
 

@@ -3,9 +3,11 @@
 Counterpart of the lifecycle of the JAX package's
 ``models/submap_collection.py`` (``:141-252``; reference
 SubmapCollection.cpp:28-409): active-submap selection, new submap on travel
-distance or point budget, and the scan-overlap buffer replayed into fresh
-submaps.  Carving, the dense map, feature computation and pose-graph
-feedback are not ported yet and raise where enabled or called.
+distance or point budget, the scan-overlap buffer replayed into fresh
+submaps, the dense map, the finished-submap queue for feature computation,
+the loop-closure candidate queue, and optimized pose-graph transforms
+applied with parent-chain propagation.  Carving is not ported yet and
+raises where enabled.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops import voxel_map
+from ..ops import filters, fpfh, voxel_map
+from ..ops import normals as normals_ops
 from ..utils.config import MapperParameters
 from ..utils.pointcloud import PointCloud
 from .submap import AdjacencyMatrix, Submap
@@ -31,9 +34,6 @@ class SubmapCollection:
         if params.map_builder.is_carving_enabled:
             raise NotImplementedError(
                 "space carving is not ported yet (ROADMAP §1 item 12)")
-        if params.mapper_localizer.is_build_dense_map:
-            raise NotImplementedError(
-                "the dense map is not ported yet (ROADMAP §1 item 13)")
         self.params = params
         self.device = device
         self.submaps: List[Submap] = []
@@ -41,6 +41,8 @@ class SubmapCollection:
         self.adjacency = AdjacencyMatrix()
         self.num_scans_merged_in_active: int = 0
         self.finished_queue: Deque[Tuple[int, float]] = deque()
+        self.lc_candidate_queue: Deque[Tuple[int, float]] = deque()
+        self.loop_closure_submaps: set = set()
         self.overlap_buffer: Deque[Tuple[PointCloud, np.ndarray, float]] = deque(
             maxlen=max(params.submaps.submaps_num_scan_overlap, 1))
         self._force_new = False
@@ -61,9 +63,12 @@ class SubmapCollection:
         """≙ createNewSubmap (SubmapCollection.cpp:150-162).  Two slots per
         point of budget: open addressing needs load factor <= ~0.5."""
         parent = self.active_idx if self.submaps else 0
+        slots = 2 * self.params.submaps.point_capacity
         self.submaps.append(Submap(
             submap_id=len(self.submaps), parent_id=parent, creation_time=time,
-            map=voxel_map.empty(2 * self.params.submaps.point_capacity, device=self.device),
+            map=voxel_map.empty(slots, device=self.device),
+            dense_map=(voxel_map.empty(slots, device=self.device)
+                       if self.params.mapper_localizer.is_build_dense_map else None),
             pose=np.asarray(map_to_range_sensor, dtype=np.float32).copy()))
         self.active_idx = len(self.submaps) - 1
         self.num_scans_merged_in_active = 0
@@ -94,9 +99,9 @@ class SubmapCollection:
             if closest_idx == self.active_idx:
                 return
             if self.adjacency.is_adjacent(closest.submap_id, active.submap_id):
-                # Revisiting an adjacent submap: switch back to it.  (Its
-                # keys are never stale: loop-closure transforms are not
-                # ported.)
+                # Revisiting an adjacent submap: switch back to it (re-key
+                # its table first if loop-closure feedback content-moved it).
+                closest.ensure_keys()
                 self.active_idx = closest_idx
             elif np.linalg.norm(pos - active.center()) > p.submap_size:
                 self._create_new_submap(map_to_range_sensor, time)
@@ -183,10 +188,72 @@ class SubmapCollection:
         self.num_scans_merged_in_active += 1
         return changed
 
-    def compute_features_for_finished(self):
-        raise NotImplementedError(
-            "submap features are not ported yet (ROADMAP §1 item 14)")
+    def insert_dense(self, cloud_map_frame: PointCloud) -> None:
+        """≙ Submap::insertScanDenseMap via denseMapWorker
+        (SlamWrapper.cpp:1014-1037)."""
+        sm = self.active_submap
+        if sm.dense_map is not None:
+            sm.dense_map = voxel_map.insert(sm.dense_map, cloud_map_frame,
+                                            self.params.dense_map_builder.map_voxel_size)
 
-    def apply_transforms(self, increments: dict):
-        raise NotImplementedError(
-            "pose-graph feedback onto submaps is not ported yet (ROADMAP §1 item 12)")
+    # -- features / loop-closure hand-off -----------------------------------
+
+    def compute_features_for_finished(self) -> List[int]:
+        """Drain the finished queue: build each submap's feature cloud and
+        FPFH descriptors and queue it as a loop-closure candidate
+        (≙ SubmapCollection.cpp:257-281 + Submap.cpp:255-275)."""
+        pr = self.params.place_recognition
+        done = []
+        while self.finished_queue:
+            idx, time = self.finished_queue.popleft()
+            sm = self.submaps[idx]
+            feat_cloud = filters.voxel_downsample(
+                sm.map.cloud, pr.feature_voxel_size, capacity=pr.feature_point_capacity,
+                order="lex")
+            feat_cloud = normals_ops.estimate_normals(
+                feat_cloud, radius=pr.feature_map_normal_estimation_radius,
+                k=pr.feature_normal_knn, sensor_origin=sm.pose[:3, 3])
+            sm.feature_cloud = feat_cloud
+            sm.features = fpfh.compute_fpfh(feat_cloud, radius=pr.feature_radius,
+                                            k=min(pr.feature_knn, 48))
+            self.lc_candidate_queue.append((idx, time))
+            done.append(idx)
+        return done
+
+    def pop_loop_closure_candidates(self) -> List[Tuple[int, float]]:
+        out = list(self.lc_candidate_queue)
+        self.lc_candidate_queue.clear()
+        return out
+
+    # -- pose-graph feedback -------------------------------------------------
+
+    def apply_transforms(self, increments: dict) -> dict:
+        """Apply optimized per-submap transform increments, propagating each
+        unoptimized submap by its parent chain
+        (≙ SubmapCollection::transform, SubmapCollection.cpp:324-375)."""
+        applied = {}
+        for sm in self.submaps:
+            # Walk up the parent chain to the nearest optimized ancestor.
+            cur = sm
+            dT = np.eye(4, dtype=np.float32)
+            seen = set()
+            while True:
+                if cur.submap_id in increments:
+                    dT = np.asarray(increments[cur.submap_id], dtype=np.float32)
+                    break
+                if cur.parent_id == cur.submap_id or cur.parent_id in seen:
+                    break
+                seen.add(cur.submap_id)
+                cur = self.submaps[cur.parent_id]
+            if not np.allclose(dT, np.eye(4), atol=1e-9):
+                sm.transform(dT)
+            applied[sm.submap_id] = dT
+        # The ACTIVE submap keeps receiving inserts (the mapper rebuilds its
+        # chain from this table): restore valid keys now; closed submaps
+        # re-key lazily on re-activation (Submap.ensure_keys).
+        if self.submaps:
+            self.active_submap.ensure_keys()
+        return applied
+
+    def mark_loop_closure_submaps(self, ids) -> None:
+        self.loop_closure_submaps.update(ids)

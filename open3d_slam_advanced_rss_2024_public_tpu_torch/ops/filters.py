@@ -31,7 +31,11 @@ def _segment_sum(values: Tensor, seg: Tensor, n: int) -> Tensor:
 
 def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
                      order: str = "morton") -> PointCloud:
-    """Voxel-grid down-sampling with per-voxel averaging of position+normal,
+    """Voxel-grid down-sampling with per-voxel averaging of position+normal.
+
+    ``order="lex"`` (what the submap features ask for): exact
+    lexicographic grouping by three stable sorts on the voxel key.
+    ``order="morton"`` (the default here, what the scan path asks for):
     grouped AND sorted by the hierarchical Morton code of the voxel, so the
     output comes out in Z-order (the NN kernel's tiles stay compact).
 
@@ -42,9 +46,8 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
     port computes both orders and selects per batch row on the device, so
     no host branch (and no synchronisation) is needed.
     """
-    if order != "morton":
-        raise NotImplementedError(
-            "voxel_downsample(order='lex') is not ported yet (ROADMAP §1, slice 3)")
+    if order not in ("lex", "morton"):
+        raise ValueError(f"unknown voxel order: {order!r}")
     if cloud.attrs is not None:
         raise NotImplementedError(
             "descriptor channels are not ported yet (ROADMAP §1, slice 3)")
@@ -55,6 +58,13 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
     big = 2 ** 30
     mask = cloud.mask
     vkey = torch.where(mask[..., None], voxel_key(cloud.xyz, voxel_size), big)
+    if order == "lex":
+        order_idx = torch.arange(n, device=mask.device).expand(mask.shape)
+        for axis in (2, 1, 0):
+            o = torch.argsort(torch.gather(vkey[..., axis], -1, order_idx), dim=-1,
+                              stable=True)
+            order_idx = torch.gather(order_idx, -1, o)
+        return _average_sorted(cloud, vkey, order_idx, capacity, batched)
     lo_corner = torch.where(mask[..., None], vkey, big).amin(dim=-2, keepdim=True)
     k = torch.where(mask[..., None], vkey - lo_corner, 0)
     k_lo, k_hi = k & 1023, torch.clamp(k >> 10, 0, 1023)
@@ -65,7 +75,16 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
                                             dim=-1, stable=True))
     span_ok = torch.where(mask[..., None], k, 0).amax(dim=(-2, -1)) < 1024
     order_idx = torch.where(span_ok[:, None], o1, o2)
+    return _average_sorted(cloud, vkey, order_idx, capacity, batched)
 
+
+def _average_sorted(cloud: PointCloud, vkey: Tensor, order_idx: Tensor, capacity: int,
+                    batched: bool) -> PointCloud:
+    """Per-voxel means of a [B, N] cloud whose lanes ``order_idx`` sorts so
+    that equal voxel keys are adjacent; compacted to ``capacity``."""
+    n = cloud.capacity
+    big = 2 ** 30
+    mask = cloud.mask
     smask = gather_lanes(mask, order_idx)
     sk = torch.where(smask[..., None], gather_rows(vkey, order_idx), big)
     new_seg = (sk != torch.roll(sk, 1, dims=-2)).any(dim=-1)

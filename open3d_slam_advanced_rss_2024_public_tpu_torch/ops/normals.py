@@ -1,10 +1,10 @@
 """Surface normals via PCA over radius neighbourhoods.
 
 Counterpart of the JAX package's ``ops/normals.py``:
-``smallest_eigenvector_3x3`` (``:28-60``) and ``estimate_normals_radius``
+``smallest_eigenvector_3x3`` (``:28-60``), ``estimate_normals_radius``
 (``:94-120``), which gets the per-point count and covariance from kernel K2
-(``ops/cuda_moments.py``).  The kNN engine (``estimate_normals``) is not
-ported yet.
+(``ops/cuda_moments.py``), and the kNN engine ``estimate_normals``
+(``:64-91``) that the submap feature clouds use.
 """
 from __future__ import annotations
 
@@ -12,9 +12,10 @@ import math
 
 import torch
 
+from ..utils.device import to_device
 from ..utils.pointcloud import PointCloud
 from ..utils.se3 import det_3x3
-from . import cuda_moments
+from . import bruteforce, cuda_moments
 
 Tensor = torch.Tensor
 
@@ -49,18 +50,45 @@ def smallest_eigenvector_3x3(C: Tensor):
     return v, evals
 
 
-def estimate_normals_radius(cloud: PointCloud, radius, sensor_origin=None,
-                            min_neighbors: int = 3) -> PointCloud:
-    """PCA normals over the full r-ball (count and covariance from K2),
-    oriented toward ``sensor_origin`` (default: the cloud frame origin).
-    Points with fewer than ``min_neighbors`` neighbours get zero normals.
-    Accepts a leading batch dimension."""
-    count, C = cuda_moments.radius_moments(cloud.xyz, cloud.mask, radius)
-    n, _ = smallest_eigenvector_3x3(C)
+def _orient_and_gate(cloud: PointCloud, n: Tensor, count: Tensor, sensor_origin,
+                     min_neighbors: int) -> PointCloud:
+    """Flip normals toward ``sensor_origin`` (default: the cloud frame
+    origin) and zero those of points with fewer than ``min_neighbors``."""
     to_sensor = -cloud.xyz
     if sensor_origin is not None:
-        to_sensor = to_sensor + torch.as_tensor(sensor_origin, dtype=torch.float32,
-                                                device=cloud.device)
+        to_sensor = to_sensor + to_device(sensor_origin, cloud.device)
     n = torch.where((n * to_sensor).sum(-1, keepdim=True) < 0, -n, n)
     good = cloud.mask & (count >= min_neighbors)
     return cloud.with_normals(torch.where(good[..., None], n, 0.0))
+
+
+def estimate_normals_radius(cloud: PointCloud, radius, sensor_origin=None,
+                            min_neighbors: int = 3) -> PointCloud:
+    """PCA normals over the full r-ball (count and covariance from K2),
+    oriented toward ``sensor_origin``.  Points with fewer than
+    ``min_neighbors`` neighbours get zero normals.  Accepts a leading batch
+    dimension."""
+    count, C = cuda_moments.radius_moments(cloud.xyz, cloud.mask, radius)
+    n, _ = smallest_eigenvector_3x3(C)
+    return _orient_and_gate(cloud, n, count, sensor_origin, min_neighbors)
+
+
+def estimate_normals(cloud: PointCloud, radius, k: int = 16, sensor_origin=None,
+                     min_neighbors: int = 3) -> PointCloud:
+    """PCA normals from up to k neighbours within ``radius`` (Open3D's
+    hybrid search), oriented toward ``sensor_origin``.  One cloud [N] or a
+    leading batch of them."""
+    if cloud.mask.dim() == 2:
+        from ..utils.pointcloud import stack
+
+        return stack([estimate_normals(cloud.map(lambda t: t[b]), radius, k, sensor_origin,
+                                       min_neighbors) for b in range(cloud.mask.shape[0])])
+    idx, _, ok = bruteforce.knn(cloud.xyz, cloud.mask, cloud.xyz, radius, k=k)
+    nbr = cloud.xyz[idx]
+    w = ok.to(torch.float32)[..., None]
+    cnt = w.sum(-2)
+    mean = (nbr * w).sum(-2) / torch.clamp(cnt, min=1.0)
+    d = (nbr - mean[:, None, :]) * w
+    C = torch.einsum("nki,nkj->nij", d, d) / torch.clamp(cnt[..., None], min=1.0)
+    n, _ = smallest_eigenvector_3x3(C)
+    return _orient_and_gate(cloud, n, cnt[..., 0], sensor_origin, min_neighbors)

@@ -10,6 +10,12 @@ and a device-side ``active`` flag freezes the carry through
 ``torch.where`` once the differential checker fires: the transform and
 the iteration count are those of the while loop, at the cost of the
 iterations after convergence (their launches run and are discarded).
+Callers that run long loops off the Mapper's path (the constraint builders:
+40 and 100 trips) pass ``poll_every``: the converged flag is then copied to
+pinned host memory every few trips without waiting, and the loop stops
+dispatching once a copy that has landed says converged.  The host still
+never waits, and the result is the fixed-trip result, because the carry is
+frozen from the converged trip on.
 
 Ported: the point-to-plane minimizer, the default outlier chain
 (trimmed distance + normal gate), the kernel and brute-force matchers, and
@@ -23,6 +29,7 @@ from typing import Optional
 import torch
 
 from ...utils import se3
+from ...utils.device import HostCopy
 from ...utils.pointcloud import PointCloud
 from .. import bruteforce, cuda_nn
 from ..hashgrid import HashGrid
@@ -32,6 +39,10 @@ Tensor = torch.Tensor
 
 # Matcher names that select kernel K1 ("pallas" keeps JAX parameter files valid).
 KERNEL_MATCHERS = ("cuda", "pallas")
+# Trips between two non-blocking looks at a loop's device-side done flag, for
+# every loop whose caller reads its result back anyway (``register`` with
+# ``poll_every``, the pose graph's LM loop).
+POLL_EVERY = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,13 +180,15 @@ def iteration_step(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid,
 
 def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
              cfg: ICPConfig = ICPConfig(),
-             nn_ref: Optional[cuda_nn.NNRef] = None) -> ICPResult:
+             nn_ref: Optional[cuda_nn.NNRef] = None, poll_every: int = 0) -> ICPResult:
     """Register ``source`` against a prebuilt reference grid; ``init_T``
     maps the source frame into the reference frame.  ``nn_ref`` is
     ``prepare_reference(cfg, ref_grid)`` where the caller registers several
     scans against one grid; without it the reference is prepared here, once
     for all iterations.  No host synchronisation: the stopping test stays
-    on the device."""
+    on the device.  ``poll_every`` > 0 stops dispatching trips once a
+    non-blocking look at the converged flag, taken every ``poll_every``
+    trips, shows convergence (same result, fewer launches)."""
     check_supported(cfg)
     if nn_ref is None:
         nn_ref = prepare_reference(cfg, ref_grid)
@@ -192,8 +205,13 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
         mean = ring.mean(0)
         return (mean[0] < cfg.min_diff_rot) & (mean[1] < cfg.min_diff_trans)
 
-    for _ in range(cfg.max_iterations):
+    polls = []
+    for trip in range(cfg.max_iterations):
+        if any(p.ready() and bool(p.host[0]) for p in polls):
+            break
         active = (it < smooth) | ~converged_of(ring)
+        if poll_every > 0 and trip > 0 and trip % poll_every == 0:
+            polls.append(HostCopy([~active]))
         T_new, rot_d, trans_d, mr, rm = iteration_step(cfg, source, ref_grid, centroid, T, nn_ref)
         ring_new = torch.cat([torch.stack([rot_d, trans_d])[None], ring[:-1]])
         T = torch.where(active, T_new, T)

@@ -12,8 +12,8 @@ Differences from the JAX package, each kept to the same results:
   - the probing loop (``_assign_slots``) runs a fixed ``_MAX_ROUNDS``
     trips with a device-side active mask instead of a ``while_loop``, so
     the host never waits on the device;
-  - ``_mix32`` multiplies in int64 and masks to 32 bits (torch's uint32
-    support is partial);
+  - ``_mix32`` (``ops/hashgrid.py``) multiplies in int64 and masks to 32
+    bits (torch's uint32 support is partial);
   - the slot claim ``.at[].min(mode="drop")`` is ``scatter_reduce_("amin")``
     with dropped lanes sent to a scratch slot C;
   - the accumulation is ``index_add_``, atomic on CUDA: the order of the
@@ -29,15 +29,13 @@ import dataclasses
 import torch
 
 from ..utils.pointcloud import SENTINEL, PointCloud
-from .hashgrid import voxel_key
+from .hashgrid import _EMPTY, _mix32, pack_keys, voxel_key
 
 Tensor = torch.Tensor
 
-_EMPTY = 0x7FFFFFFF  # > any 30-bit packed key
 _WINDOW = 8          # probe slots examined per round
 _MAX_ROUNDS = 16     # round budget (binds only on full tables)
 _HALF = 512          # packing bias: rel coords in [0, 1024)
-_MASK32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,31 +99,9 @@ def empty(capacity: int, device="cuda") -> VoxelMap:
         dropped=torch.zeros((), dtype=torch.float32, device=device))
 
 
-def _mul32(h: Tensor, c: int) -> Tensor:
-    """(h * c) mod 2^32 for h in [0, 2^32), without int64 overflow: the
-    high 16 bits of c contribute only their product's low 16 bits."""
-    lo = h * (c & 0xFFFF)
-    hi = ((h * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
-
-
-def _mix32(h: Tensor) -> Tensor:
-    """murmur3 finalizer on the uint32 bit pattern of int32 keys; returns
-    int64 values in [0, 2^32)."""
-    h = h.to(torch.int64) & _MASK32
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def _pack_keys(key: Tensor, origin: Tensor, ok: Tensor):
     """int32[..., 3] voxel coords -> (packed int32[...], in_range bool[...])."""
-    rel = key - origin + _HALF
-    in_range = ok & ((rel >= 0) & (rel < 2 * _HALF)).all(dim=-1)
-    pk = (rel[..., 0] << 20) | (rel[..., 1] << 10) | rel[..., 2]
-    return torch.where(in_range, pk, _EMPTY), in_range
+    return pack_keys(key, origin, ok, _HALF)
 
 
 def _assign_slots(ptable: Tensor, pk: Tensor, ok: Tensor):
@@ -203,17 +179,52 @@ def insert(vmap: VoxelMap, scan: PointCloud, voxel_size, weights: Tensor = None)
 def from_cloud(template: VoxelMap, cloud: PointCloud, weights: Tensor,
                cell: Tensor) -> VoxelMap:
     """A fresh table (same capacity as ``template``) holding a weighted
-    point set — used to rebuild after an eviction."""
+    point set — used to rebuild after an eviction or a rigid transform,
+    which invalidates every stored voxel key."""
     fresh = empty(template.capacity, device=template.device)
     return insert(fresh, cloud, cell, weights=weights)
+
+
+def _cell_or_one(vmap: VoxelMap) -> Tensor:
+    """Guard the empty map (cell 0 would collapse every key to one voxel)."""
+    return torch.where(vmap.cell > 0, vmap.cell, 1.0)
+
+
+def transform(vmap: VoxelMap, T: Tensor) -> VoxelMap:
+    """Rigidly move the whole map and rebuild the table: the transformed
+    voxel means are re-inserted with their accumulated weights (≙
+    Submap::transform, Submap.cpp:115-128)."""
+    moved = vmap.cloud.transform(T.to(torch.float32))
+    return from_cloud(vmap, moved, vmap.weight, _cell_or_one(vmap))
+
+
+def transform_content(vmap: VoxelMap, T: Tensor) -> VoxelMap:
+    """Rigidly move the map's CONTENT (the accumulated sums) without
+    re-keying the table: elementwise over the accumulator.  ``cloud`` is
+    then right in the new frame but the stored voxel KEYS are stale, so a
+    further ``insert`` would bin by the old geometry: for CLOSED submaps on
+    pose-graph feedback, with ``rekey`` before the submap is active again."""
+    T = T.to(torch.float32)
+    R, t = T[:3, :3], T[:3, 3]
+    w = vmap.weight[..., None]
+    acc = torch.cat([vmap.sum_xyz @ R.T + t * w, vmap.acc[..., 3:6] @ R.T,
+                     vmap.acc[..., 6:]], dim=-1)
+    return dataclasses.replace(vmap, acc=acc)
+
+
+def rekey(vmap: VoxelMap) -> VoxelMap:
+    """Rebuild the table's keys from the current voxel means (after
+    ``transform_content``); keeps the cumulative drop counter."""
+    out = from_cloud(vmap, vmap.cloud, vmap.weight, _cell_or_one(vmap))
+    return dataclasses.replace(out, dropped=vmap.dropped)
 
 
 def _rebuild_keeping(vmap: VoxelMap, keep: Tensor) -> VoxelMap:
     cloud = vmap.cloud
     survivors = PointCloud(xyz=torch.where(keep[:, None], cloud.xyz, SENTINEL),
                            normals=cloud.normals, mask=keep)
-    cell = torch.where(vmap.cell > 0, vmap.cell, 1.0)
-    out = from_cloud(vmap, survivors, torch.where(keep, vmap.weight, 0.0), cell)
+    out = from_cloud(vmap, survivors, torch.where(keep, vmap.weight, 0.0),
+                     _cell_or_one(vmap))
     # Preserve the cumulative drop counter (observability).
     return dataclasses.replace(out, dropped=vmap.dropped)
 

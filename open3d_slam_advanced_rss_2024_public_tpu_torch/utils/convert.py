@@ -1,8 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
-Turns the JAX package's map and pipeline state (read out with
-``numpy.asarray``) into the port's tensors, so that both sides can start
-from the same map; parameters load through the copied strict loader.
+Turns the JAX package's map, submap, pipeline and pose-graph state (read
+out with ``numpy.asarray``) into the port's, so that both sides can start a
+stage from the same state; parameters load through the copied strict
+loader.  The module takes arrays and plain Python values only: the caller
+reads them out of the JAX objects.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops.voxel_map import VoxelMap
+from ..utils.pointcloud import PointCloud
 from .config import SlamParameters, load_parameters
 
 
@@ -21,6 +24,63 @@ def voxel_map_from_arrays(ptable, origin, acc, cell, dropped, device="cuda") -> 
     return VoxelMap(ptable=t(ptable, torch.int32), origin=t(origin, torch.int32),
                     acc=t(acc, torch.float32), cell=t(cell, torch.float32),
                     dropped=t(dropped, torch.float32))
+
+
+def voxel_map_from_jax(jmap, device="cuda") -> VoxelMap:
+    """A JAX ``VoxelMap`` object (any object with its array fields) -> the
+    port's."""
+    return voxel_map_from_arrays(jmap.ptable, jmap.origin, jmap.acc, jmap.cell,
+                                 jmap.dropped, device=device)
+
+
+def cloud_from_arrays(xyz, normals, mask, device="cuda") -> PointCloud:
+    """The fields of a JAX ``PointCloud`` -> the port's, lane for lane."""
+    return PointCloud(
+        xyz=torch.as_tensor(np.array(xyz), dtype=torch.float32, device=device),
+        normals=torch.as_tensor(np.array(normals), dtype=torch.float32, device=device),
+        mask=torch.as_tensor(np.array(mask), dtype=torch.bool, device=device))
+
+
+def submap_from_jax(jsub, device="cuda"):
+    """A JAX ``Submap`` -> the port's: tables, pose, feature cloud and
+    descriptors, scan count, frozen center and ``keys_stale``."""
+    from ..models.submap import Submap
+
+    fc = jsub.feature_cloud
+    # A centroid still in flight is read out here (waiting for it), not
+    # through center(), which answers the creation origin until it lands.
+    center = jsub._center if jsub._center is not None else jsub._center_dev
+    return Submap(
+        submap_id=int(jsub.submap_id), parent_id=int(jsub.parent_id),
+        creation_time=float(jsub.creation_time),
+        map=voxel_map_from_jax(jsub.map, device),
+        dense_map=None if jsub.dense_map is None else voxel_map_from_jax(jsub.dense_map, device),
+        pose=np.array(jsub.pose, dtype=np.float32),
+        feature_cloud=None if fc is None else cloud_from_arrays(fc.xyz, fc.normals, fc.mask,
+                                                                device),
+        features=None if jsub.features is None else torch.as_tensor(
+            np.array(jsub.features), dtype=torch.float32, device=device),
+        n_scans=int(jsub.n_scans),
+        _center=None if center is None else np.array(center, dtype=np.float64),
+        keys_stale=bool(jsub.keys_stale))
+
+
+def constraints_from_jax(jconstraints):
+    """A list of JAX ``Constraint`` objects -> the port's."""
+    from ..models.pose_graph import Constraint
+
+    return [Constraint(source_id=int(c.source_id), target_id=int(c.target_id),
+                       T_source_target=np.array(c.T_source_target, np.float32),
+                       information=np.array(c.information, np.float32),
+                       is_odometry=bool(c.is_odometry)) for c in jconstraints]
+
+
+def optimization_problem_from_dict(d: dict, max_nodes: int = 128, max_edges: int = 512,
+                                   device="cuda"):
+    """``OptimizationProblem.to_dict()`` of either package -> the port's."""
+    from ..models.pose_graph import OptimizationProblem
+
+    return OptimizationProblem.from_dict(d, max_nodes, max_edges, device=device)
 
 
 def map_state_from_arrays(ptable, origin, acc, cell, dropped, pose,

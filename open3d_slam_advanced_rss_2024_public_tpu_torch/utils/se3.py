@@ -1,11 +1,13 @@
 """SE(3) / SO(3) utilities on 4x4 float32 tensors, batched over leading dims.
 
 Counterpart of the functions of the JAX package's ``utils/se3.py`` that the
-mapper's hot path uses.  Everything is written with elementwise tensor ops
+mapper, the pose graph, RANSAC and place recognition use.  Everything is written with elementwise tensor ops
 and small matmuls: no LAPACK call, because torch's LAPACK wrappers on CUDA
 check their ``info`` result on the host and so synchronise the stream.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,6 +89,87 @@ def se3_exp(xi: Tensor) -> Tensor:
     R = I + A[..., None, None] * W + B[..., None, None] * W2
     V = I + B[..., None, None] * W + C[..., None, None] * W2
     return make_transform(R, (V @ v[..., None])[..., 0])
+
+
+def compose(A: Tensor, B: Tensor) -> Tensor:
+    return A @ B
+
+
+def so3_log(R: Tensor) -> Tensor:
+    """Rotation matrix -> axis-angle vector (theta * unit_axis).  The same
+    three branches as the JAX package (``se3.py:94-139``): a series in
+    (1 - cos) below ~4.5e-3 rad, the vector part of the skew component
+    elsewhere, and the diagonal extraction within 1e-3 of pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    c = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    small = c > 1.0 - 1e-5
+    c_safe = torch.where(small, 0.0, c)
+    theta = torch.arccos(c_safe)
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - c_safe * c_safe, min=1e-12))
+    scale_series = 0.5 + (1.0 - c) / 6.0 + (1.0 - c) ** 2 * (7.0 / 90.0)
+    scale = torch.where(small, scale_series, theta / (2.0 * sin_theta))
+    theta = torch.where(small, torch.sqrt(torch.clamp(2.0 * (1.0 - c), min=0.0)), theta)
+    w = scale[..., None] * v
+    # Near pi the vector part degenerates; use diagonal extraction.
+    near_pi = theta > (math.pi - 1e-3)
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) / 2.0, 0.0, 1.0))
+    sign_ref = torch.stack([torch.ones_like(theta),
+                            torch.sign(R[..., 0, 1] + R[..., 1, 0] + _EPS),
+                            torch.sign(R[..., 0, 2] + R[..., 2, 0] + _EPS)], dim=-1)
+    axis = axis * sign_ref
+    axis = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + _EPS)
+    return torch.where(near_pi[..., None], axis * theta[..., None], w)
+
+
+def se3_log(T: Tensor) -> Tensor:
+    """4x4 transform -> twist [..., 6] = (omega, v)."""
+    w = so3_log(rotation(T))
+    theta2 = (w * w).sum(-1)
+    A, B, _ = _coefficients(theta2)
+    small = theta2 < 1e-3
+    W = skew(w)
+    I = torch.eye(3, dtype=T.dtype, device=T.device)
+    # V^{-1} = I - W/2 + (1/theta2)(1 - A/(2B)) W^2
+    coef = torch.where(small, 1.0 / 12.0,
+                       (1.0 - A / (2.0 * B)) / torch.where(small, 1.0, theta2))
+    Vinv = I - 0.5 * W + coef[..., None, None] * (W @ W)
+    return torch.cat([w, (Vinv @ translation(T)[..., None])[..., 0]], dim=-1)
+
+
+def _blocks_2x2(a: Tensor, b: Tensor, c: Tensor, d: Tensor) -> Tensor:
+    return torch.cat([torch.cat([a, b], dim=-1), torch.cat([c, d], dim=-1)], dim=-2)
+
+
+def adjoint(T: Tensor) -> Tensor:
+    """Adjoint Ad_T [..., 6, 6] for twists ordered (omega, v):
+    Ad = [[R, 0], [[t]x R, R]]."""
+    R = rotation(T)
+    return _blocks_2x2(R, torch.zeros_like(R), skew(translation(T)) @ R, R)
+
+
+def ad(xi: Tensor) -> Tensor:
+    """Algebra adjoint ad_xi [..., 6, 6]: [[w^, 0], [v^, w^]]."""
+    W = skew(xi[..., :3])
+    return _blocks_2x2(W, torch.zeros_like(W), skew(xi[..., 3:]), W)
+
+
+def log_right_jacobian_inv(r: Tensor) -> Tensor:
+    """Inverse right Jacobian of the SE(3) log at twist r [..., 6], in the
+    series form I + 1/2 ad(r) + 1/12 ad(r)^2 (exact to O(|r|^3))."""
+    a = ad(r)
+    return torch.eye(6, dtype=r.dtype, device=r.device) + 0.5 * a + (1.0 / 12.0) * (a @ a)
+
+
+def matrix_to_rpy(R: Tensor) -> Tensor:
+    """Rotation matrix -> roll, pitch, yaw (XYZ extrinsic)."""
+    p = torch.arcsin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    r = torch.arctan2(R[..., 2, 1], R[..., 2, 2])
+    y = torch.arctan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([r, p, y], dim=-1)
 
 
 def _cofactor_3x3(R: Tensor) -> Tensor:

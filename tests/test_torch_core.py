@@ -276,8 +276,9 @@ def test_unported_surface_raises_not_implemented():
         icp.check_supported(icp.ICPConfig(matcher="hashgrid"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         icp.check_supported(icp.ICPConfig(minimizer="gicp"))
+    assert scan_processing.resolve_normal_engine("knn") == "knn"  # ported with the SLAM runtime
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan_processing.resolve_normal_engine("knn")
+        hashgrid.build()
     p = load_parameters({"mapper": {"map_builder": {"is_carving_enabled": True}}})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SubmapCollection(p.mapper, device="cpu")
