@@ -22,7 +22,15 @@ queries against their plain versions, the SLAM runtime on the card against
 itself on the CPU (a closed 16-scan loop with every stage on, and the
 loop-closure stages one by one from a common state at full width), and one
 pose-graph solve of the loop on its own (trips, host time and device
-operations a trip).  Every phase prints one line; any failure ends the run
+operations a trip).  Then the command line at the package defaults
+(``cli.main`` in this process) on a 101-scan lap of 120000-point scans that
+the script writes under build/ in KITTI odometry's layout: GICP odometry,
+the Mapper, submaps, loop closure and the pose graph, held to an ATE below
+0.2 m and the odometry's; K1 and K2 at the defaults' shapes, one GICP
+registration and one carve on the card against the CPU, the hashed grid
+against K1, both overflow policies of the scan path, and a localization
+run from a Lua parameter file on the saved map.  Every phase prints one
+line; any failure ends the run
 with a non-zero exit.  The second-to-last line is a JSON object
 with each kernel's launches on the main path, error against its twin, times and
 bound (``bound_ms`` counts the candidate pairs this run's kernels swept;
@@ -734,6 +742,44 @@ def nn_shape_row(torch, label: str, q, r, max_dist: float, launches: int):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+def moments_shape_row(torch, label: str, blk, launches: int):
+    """K2 against its twin on a [1, N] block at ``RADIUS``, with its times
+    and its bound (the pairs its own tile lists sweep).  Prints the phase
+    line and returns the row of the kernels line; ``launches`` is the count
+    of the path that gives K2 this shape."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_moments, cuda_tiles
+
+    kc, kcov = cuda_moments.radius_moments(blk.xyz, blk.mask, RADIUS)
+    pcnt, pcov = cuda_moments.radius_moments_plain(blk.xyz, blk.mask, RADIUS)
+    torch.cuda.synchronize()
+    m = blk.mask
+    if not torch.equal(kc[m], pcnt[m]):
+        fail(f"K2 {label}: {int((kc != pcnt)[m].sum())} neighbourhood counts differ from the twin")
+    err2 = float((kcov - pcov)[m].abs().max())
+    if not err2 <= 1e-5:
+        fail(f"K2 {label}: covariance differs from the twin by {err2} (> 1e-5)")
+    center = cuda_tiles.centroid(blk.xyz, m)
+    _, _, _, k_count2 = cuda_moments._launch(blk.xyz, m, center, RADIUS, with_plan=True)
+    pairs2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    admitted = float(kc[m].sum())
+    ms2 = graph_ms(lambda: cuda_moments._launch(blk.xyz, m, center, RADIUS))
+    wrapper_ms2 = cuda_ms(lambda: cuda_moments.radius_moments(blk.xyz, m, RADIUS))
+    plain_ms2 = cuda_ms(lambda: cuda_moments.radius_moments_plain(blk.xyz, m, RADIUS),
+                        reps=3, warmup=1)
+    bound2, by2 = bound_ms(blk.xyz.numel() * 4 + m.numel() + m.numel() * 4 * (1 + 9),
+                           pairs2 * K2_OPS_PER_PAIR + admitted * K2_OPS_PER_ADMITTED)
+    phase("K2 moments " + label, shape=f"{m.shape[0]}x{m.shape[1]}", valid=int(m.sum()),
+          launches=launches, max_abs_err_cov=err2,
+          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{pairs2:.0f}",
+          ms=f"{ms2:.4f}", wrapper_ms=f"{wrapper_ms2:.4f}", plain_ms=f"{plain_ms2:.4f}",
+          bound_ms=f"{bound2:.6f}", bound_by=by2)
+    return {"name": f"moments ({label})", "route": "cuda",
+            "source": "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/moments.cu",
+            "replaces": "open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_moments.py:130",
+            "launches": launches, "max_abs_err": err2, "ms": ms2, "wrapper_ms": wrapper_ms2,
+            "plain_ms": plain_ms2, "bound_ms": bound2, "bound_by": by2, "library_ms": None}
+
+
 def slam_own_odometry(torch, dev, gen):
     """Phase ``slam own odometry``: 8 scans through the stepper with no
     odometry pose handed in, so that the scan-to-scan ``LidarOdometry``
@@ -809,12 +855,9 @@ def slam_shape_checks(torch, dev, slam, launches, raw_scan):
     of the kernels line."""
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models import place_recognition as pr
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_tiles,
-                                                                    hashgrid)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import hashgrid
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import ransac
 
-    source = "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/"
-    jax_ops = "open3d_slam_advanced_rss_2024_public_tpu/ops/"
     rows = []
     subs = slam.mapper.submaps.submaps
     # Two neighbouring submaps, each cut to 9 m around its own centre: in
@@ -845,34 +888,7 @@ def slam_shape_checks(torch, dev, slam, launches, raw_scan):
     # K2 over one scan (the offline stepper's blocks hold one scan).
     blk = scan_processing.preprocess_scan(raw_scan, 0.5, 18.0, 0.15, 1.0, N_SCAN,
                                           estimate_scan_normals=False).map(lambda t: t[None])
-    kc, kcov = cuda_moments.radius_moments(blk.xyz, blk.mask, RADIUS)
-    pcnt, pcov = cuda_moments.radius_moments_plain(blk.xyz, blk.mask, RADIUS)
-    torch.cuda.synchronize()
-    m = blk.mask
-    if not torch.equal(kc[m], pcnt[m]):
-        fail(f"K2 K=1: {int((kc != pcnt)[m].sum())} neighbourhood counts differ from the twin")
-    err2 = float((kcov - pcov)[m].abs().max())
-    if not err2 <= 1e-5:
-        fail(f"K2 K=1: covariance differs from the twin by {err2} (> 1e-5)")
-    center = cuda_tiles.centroid(blk.xyz, m)
-    _, _, _, k_count2 = cuda_moments._launch(blk.xyz, m, center, RADIUS, with_plan=True)
-    pairs2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
-    admitted = float(kc[m].sum())
-    ms2 = graph_ms(lambda: cuda_moments._launch(blk.xyz, m, center, RADIUS))
-    wrapper_ms2 = cuda_ms(lambda: cuda_moments.radius_moments(blk.xyz, m, RADIUS))
-    plain_ms2 = cuda_ms(lambda: cuda_moments.radius_moments_plain(blk.xyz, m, RADIUS),
-                        reps=3, warmup=1)
-    bound2, by2 = bound_ms(blk.xyz.numel() * 4 + m.numel() + m.numel() * 4 * (1 + 9),
-                           pairs2 * K2_OPS_PER_PAIR + admitted * K2_OPS_PER_ADMITTED)
-    phase("K2 moments K=1", shape=f"1x{N_SCAN}", valid=int(m.sum()), max_abs_err_cov=err2,
-          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{pairs2:.0f}",
-          ms=f"{ms2:.4f}", wrapper_ms=f"{wrapper_ms2:.4f}", plain_ms=f"{plain_ms2:.4f}",
-          bound_ms=f"{bound2:.6f}", bound_by=by2)
-    rows.append({"name": "moments (single-scan block)", "route": "cuda",
-                 "source": source + "moments.cu", "replaces": jax_ops + "pallas_moments.py:130",
-                 "launches": launches["moments"], "max_abs_err": err2, "ms": ms2,
-                 "wrapper_ms": wrapper_ms2, "plain_ms": plain_ms2, "bound_ms": bound2,
-                 "bound_by": by2, "library_ms": None})
+    rows.append(moments_shape_row(torch, "single-scan block", blk, launches["moments"]))
 
     # The information matrix where some queries have no reference within
     # max_dist: K1 answers index 0 / +inf there and the twin the nearest
@@ -1204,6 +1220,624 @@ def pose_graph_solve(torch, dev, node_poses, graph, solve_kwargs):
         fail("pose graph solve: an increment is not finite")
 
 
+# -- the command-line path at the package defaults ------------------------------
+
+# One lap of a 12 m circle in 100 scans, 0.754 m apart (10 Hz at 27 km/h), the
+# sensor 1.73 m above the ground (KITTI's HDL-64E), and every scan holding
+# KITTI_POINTS points within KITTI_RANGE.  The odometry rejects a scan-to-scan
+# step longer than 0.8 m as a jump (the reference's constant, odometry.py),
+# so KITTI's 1 m steps at 36 km/h would all be rejected.
+KITTI_LAP = 100
+KITTI_RADIUS = 12.0
+KITTI_POINTS = 120000
+KITTI_RANGE = 30.0
+KITTI_DIR = OUT / "kitti_synthetic"
+# The velodyne -> camera-0 calibration of KITTI odometry sequence 00 (calib.txt "Tr").
+KITTI_TR = np.array([[4.276802e-04, -9.999672e-01, -8.084491e-03, -1.198459e-02],
+                     [-7.210626e-03, 8.081198e-03, -9.999413e-01, -5.403984e-02],
+                     [9.999738e-01, 4.859485e-04, -7.206933e-03, -2.921968e-01],
+                     [0.0, 0.0, 0.0, 1.0]])
+LOCALIZATION_SCANS = 10
+
+
+def kitti_world(dev):
+    """A seeded world around the lap, dense enough that every scan of it
+    holds about KITTI_POINTS points within KITTI_RANGE: a 100 m ground plane
+    and 220 boxes, cylinders and spheres standing on it, none within 3 m of
+    the lap."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import generators
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.pointcloud import make_cloud
+
+    rng = np.random.default_rng(40)
+    half = 50.0
+    parts = [generators.uniform_plane(rng, 320000, half_extents=(half, half))]
+    while len(parts) < 221:
+        x, y = rng.uniform(-half + 2.0, half - 2.0, 2)
+        if abs(np.hypot(x, y) - KITTI_RADIUS) < 3.0:
+            continue
+        kind, size = int(rng.integers(0, 3)), float(rng.uniform(0.5, 2.5))
+        if kind == 0:
+            p, n = generators.uniform_box(rng, 1500, half_extents=(size * 0.7, size * 0.4, size))
+            c, s = np.cos(rng.uniform(0.0, np.pi)), np.sin(rng.uniform(0.0, np.pi))
+            R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+            p, n, z = p @ R.T, n @ R.T, size
+        elif kind == 1:
+            p, n = generators.uniform_cylinder(rng, 1200, radius=size * 0.4, height=size * 2)
+            z = size
+        else:
+            p, n = generators.uniform_sphere(rng, 1000, radius=size * 0.5)
+            z = size * 0.5
+        parts.append((p + np.array([x, y, z], np.float32), n))
+    return make_cloud(np.concatenate([p for p, _ in parts]),
+                      normals=np.concatenate([n for _, n in parts]), device=dev)
+
+
+def write_kitti_sequence(torch, dev):
+    """A directory in KITTI odometry's layout under build/: the lap's scans
+    as ``sequences/00/velodyne/%06d.bin`` (float32 x, y, z, reflectance),
+    ``sequences/00/calib.txt`` with the ``Tr:`` line and ``poses/00.txt``
+    with the ground truth in the camera frame.  The lap closes on its first
+    pose.  Returns the ground truth in the velodyne frame."""
+    import shutil
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+
+    t0 = time.perf_counter()
+    world = kitti_world(dev)
+    gt = synthetic.loop_trajectory(KITTI_LAP, radius=KITTI_RADIUS, center=(0.0, 0.0), z=1.73)
+    gt.append(gt[0])
+    gen = torch.Generator(device=dev).manual_seed(41)
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    velo = KITTI_DIR / "sequences" / "00" / "velodyne"
+    velo.mkdir(parents=True)
+    counts = []
+    for i, T in enumerate(gt):
+        scan = synthetic.render_scan(world, T, gen, max_range=KITTI_RANGE,
+                                     n_points=KITTI_POINTS, noise=0.01)
+        xyz = scan.xyz[scan.mask].cpu().numpy()
+        rec = np.zeros((len(xyz), 4), np.float32)
+        rec[:, :3] = xyz
+        rec[:, 3] = np.linalg.norm(xyz, axis=1) / KITTI_RANGE  # a stand-in reflectance
+        rec.tofile(velo / f"{i:06d}.bin")
+        counts.append(len(xyz))
+    (KITTI_DIR / "sequences" / "00" / "calib.txt").write_text(
+        "Tr: " + " ".join(f"{v:.6e}" for v in KITTI_TR[:3].reshape(-1)) + "\n")
+    (KITTI_DIR / "poses").mkdir()
+    cam = [T.astype(np.float64) @ np.linalg.inv(KITTI_TR) for T in gt]
+    (KITTI_DIR / "poses" / "00.txt").write_text(
+        "\n".join(" ".join(f"{v:.9e}" for v in T[:3].reshape(-1)) for T in cam) + "\n")
+    phase("kitti sequence", scans=len(gt), world_points=int(world.mask.sum()),
+          points_per_scan=span(counts), seconds=f"{time.perf_counter() - t0:.1f}")
+    if min(counts) < KITTI_POINTS:
+        fail(f"kitti sequence: a scan holds only {min(counts)} points within {KITTI_RANGE} m")
+    return gt
+
+
+class _Counting:
+    """Counts K1 and K2 launches and host time inside the odometry's and
+    the Mapper's entry points, apart (outermost calls only: the Mapper's
+    entry points call each other), and keeps the odometry's pose after each scan and the
+    ``SlamWrapper`` of each replay.  Every stage of the offline stepper runs
+    on the caller's thread, so the differences are exact."""
+
+    def __init__(self):
+        from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import replay
+        from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import Mapper
+        from open3d_slam_advanced_rss_2024_public_tpu_torch.models.odometry import LidarOdometry
+        from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_moments, cuda_nn
+
+        self.counts = {k: 0 for k in ("odometry_nn", "odometry_moments", "mapper_nn",
+                                      "mapper_moments")}
+        self.host_ms = {"odometry": 0.0, "mapper": 0.0}
+        self.odom_poses, self.slams, self._depth = [], [], {"odometry": 0, "mapper": 0}
+        self._real = [(LidarOdometry, "add_range_scan"), (Mapper, "add_range_measurement"),
+                      (Mapper, "flush"), (replay.ReplayRunner, "run")]
+        self._saved = [getattr(cls, name) for cls, name in self._real]
+        counting = self
+
+        def counted(fn, who):
+            def inner(obj, *args, **kwargs):
+                counting._depth[who] += 1
+                nn0, m0 = cuda_nn.launches, cuda_moments.launches
+                t0 = time.perf_counter()
+                try:
+                    return fn(obj, *args, **kwargs)
+                finally:
+                    counting._depth[who] -= 1
+                    if counting._depth[who] == 0:
+                        counting.host_ms[who] += (time.perf_counter() - t0) * 1e3
+                        counting.counts[who + "_nn"] += cuda_nn.launches - nn0
+                        counting.counts[who + "_moments"] += cuda_moments.launches - m0
+                        if who == "odometry":
+                            counting.odom_poses.append(obj.odom_to_range_sensor.copy())
+            return inner
+
+        def run(runner, *args, **kwargs):
+            counting.slams.append(runner.slam)
+            return self._saved[3](runner, *args, **kwargs)
+
+        LidarOdometry.add_range_scan = counted(self._saved[0], "odometry")
+        Mapper.add_range_measurement = counted(self._saved[1], "mapper")
+        Mapper.flush = counted(self._saved[2], "mapper")
+        replay.ReplayRunner.run = run
+
+    def restore(self):
+        for (cls, name), fn in zip(self._real, self._saved):
+            setattr(cls, name, fn)
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process: (exit code, its standard output
+    lines, its standard error)."""
+    import contextlib
+    import io as text_io
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import cli
+
+    out, err = text_io.StringIO(), text_io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def cli_kitti(torch, dev, gt):
+    """Phase ``cli kitti``, this slice's path: the command-line entry point
+    on the KITTI-layout directory with no parameter file, so that every
+    parameter is the package default (scan-to-scan GICP odometry, the Mapper
+    with K1 and K2, submaps, features, loop closure, the pose graph).  The
+    launch counts are set to 0 just before the run and read just after.
+    Returns (the SlamWrapper, the launches of the run, the counts apart)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch import native
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn,
+                                                                    cuda_tiles)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.timing import GLOBAL_STATS
+
+    out = OUT / "cli_kitti"
+    counting = _Counting()
+    GLOBAL_STATS.timers.clear()
+    cuda_nn.reset_launches()
+    cuda_moments.reset_launches()
+    cuda_tiles.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc, lines, _ = run_cli(["--dataset", "kitti", "--kitti-root", str(KITTI_DIR),
+                                "--sequence", "00", "--output", str(out), "--eval-ate"])
+        torch.cuda.synchronize()
+    finally:
+        counting.restore()
+    wall = time.perf_counter() - t0
+    launches = {"nn": cuda_nn.launches, "moments": cuda_moments.launches,
+                "tile_prepare": cuda_tiles.prepare_launches,
+                "tile_plan": cuda_tiles.plan_launches}
+    slam, counts = counting.slams[0], counting.counts
+    n = len(gt)
+    result = json.loads(lines[-1]) if lines else {}
+    est = np.stack(slam.trajectory_poses)
+    ate = io.ate_rmse(est, np.stack(gt[:len(est)]))
+    odom = np.stack(counting.odom_poses)
+    ate_odom = io.ate_rmse(odom, np.stack(gt[:len(odom)]))
+    poses = np.loadtxt(out / "slam_poses", ndmin=2)
+    map_points = int(io.load_pcd(str(out / "map.pcd"), device=dev).mask.sum())
+    graph = json.loads((out / "pose_graph.json").read_text())
+    odo = slam.odometry
+    stages = {name[5:]: t for name, t in GLOBAL_STATS.timers.items()
+              if name[5:] in ("features", "odom_constraints", "lc_build", "pose_graph_solve",
+                              "lc_apply_transforms", "finish_features", "finish_lc")
+              and name.startswith("slam/")}
+    phase("cli kitti", scans=n, trajectory_entries=len(est), ms_per_scan=f"{wall / n * 1e3:.3f}",
+          odometry_ms=f"{counting.host_ms['odometry']:.1f}",
+          mapper_ms=f"{counting.host_ms['mapper']:.1f}",
+          **{f"{k}_ms": f"{t.total_ms:.1f}/{t.count}" for k, t in stages.items()},
+          submaps=len(slam.mapper.submaps.submaps), closures=slam.loop_closure_count,
+          ate_rmse_m=result.get("ate_rmse_m"), ate_slam_m=f"{ate:.4f}",
+          ate_odometry_m=f"{ate_odom:.4f}", minimizer=odo.icp_cfg.minimizer,
+          matcher=odo.icp_cfg.matcher, rejected_jumps=odo.rejected_jumps,
+          low_fitness=odo.low_fitness, nn_launches=launches["nn"],
+          nn_launches_odometry=counts["odometry_nn"], nn_launches_mapper=counts["mapper_nn"],
+          moments_launches=launches["moments"],
+          moments_launches_odometry=counts["odometry_moments"],
+          moments_launches_mapper=counts["mapper_moments"],
+          map_points=map_points, graph_edges=len(graph["odometry_constraints"]),
+          graph_closures=len(graph["loop_closure_constraints"]),
+          native_reader=native.backend())
+    if rc != 0 or result.get("frames") != n:
+        fail(f"cli kitti: exit code {rc}, result line {lines[-1:] }")
+    if len(est) != n or poses.shape[0] != n or not np.isfinite(est).all():
+        fail(f"cli kitti: {len(est)} trajectory entries and {poses.shape[0]} logged poses "
+             f"for {n} scans")
+    if odo.icp_cfg.minimizer != "gicp" or odo.rejected_jumps or odo.low_fitness:
+        fail(f"cli kitti: odometry {odo.icp_cfg.minimizer}, {odo.rejected_jumps} rejected "
+             f"jumps, {odo.low_fitness} low-fitness scans")
+    if min(counts["odometry_nn"], counts["mapper_nn"]) <= 0 or min(launches.values()) <= 0:
+        fail(f"cli kitti: launches {launches}, apart {counts}")
+    if abs(result["ate_rmse_m"] - round(ate, 4)) > 1e-9:
+        fail(f"cli kitti: the CLI reports an ATE of {result['ate_rmse_m']}, its poses {ate:.4f}")
+    if not (ate < 0.2 and ate <= ate_odom):
+        fail(f"cli kitti: ATE {ate:.4f} m against the odometry's {ate_odom:.4f} m (bar 0.2 m)")
+    if map_points <= 10000:
+        fail(f"cli kitti: map.pcd reloads with {map_points} points")
+    return slam, launches, counts
+
+
+def cli_default_shapes(torch, dev, slam, counts, gt):
+    """K1 and K2 at the shapes of the package defaults against their plain
+    versions (``K1 nn odometry defaults``: two consecutive preprocessed
+    KITTI-width scans, 16384 x 16384 at 1.0 m; ``K1 nn mapper defaults``: a
+    scan against the final submap's default 65536-point patch at 1.0 m;
+    ``K2 moments odometry``: one scan, [1, 16384] at 0.5 m); one default GICP
+    registration on the card and on the CPU (``gicp register``); the hashed
+    grid against K1 on the mapper's patch and a short Mapper run on it
+    (``hashgrid matcher``); one carve of the full-width submap, card against
+    CPU (``carve``).  Returns the new rows of the kernels line."""
+    import dataclasses
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import kitti
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_nn, hashgrid, voxel_map
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.device import HostCopy
+
+    rows = []
+    odo = slam.odometry
+    cfg = odo.icp_cfg
+    k = len(gt) // 2
+    raw = [kitti.read_velodyne_bin(str(KITTI_DIR / "sequences" / "00" / "velodyne"
+                                       / f"{i:06d}.bin"), capacity=131072, device=dev)
+           for i in (k - 1, k)]
+    prev, cur = (odo._preprocess(r) for r in raw)
+    rows.append(nn_shape_row(torch, "odometry defaults", cur.xyz.contiguous(),
+                             prev.xyz.contiguous(), cfg.max_correspondence_dist,
+                             counts["odometry_nn"]))
+    sp = slam.params.odometry.scan_processing
+    blk = scan_processing.preprocess_scan(
+        raw[1], sp.scan_cropping.cropping_radius_min, sp.scan_cropping.cropping_radius_max,
+        sp.voxel_size, 1.0, sp.point_capacity, estimate_scan_normals=False)
+    rows.append(moments_shape_row(torch, "odometry", blk.map(lambda t: t[None]),
+                                  counts["odometry_moments"]))
+
+    # -- the mapper's patch at the defaults: the final submap around the last
+    # pose, and the last scan placed there.
+    pcfg = slam.mapper.pipe_cfg
+    pose = torch.as_tensor(slam.trajectory_poses[-1], device=dev)
+    submap = slam.mapper.submaps.active_submap.map
+    crop = dict(min_radius=0.0, max_radius=pcfg.crop_max_radius + pcfg.block_ref_margin,
+                match_dist=pcfg.icp.max_correspondence_dist, capacity=pcfg.map_patch_capacity)
+    _, flat = scan_processing.crop_submap_and_index(submap.cloud, pose[:3, 3],
+                                                    build_hash=False, **crop)
+    _, hashed = scan_processing.crop_submap_and_index(submap.cloud, pose[:3, 3], **crop)
+    last = odo._preprocess(kitti.read_velodyne_bin(
+        str(KITTI_DIR / "sequences" / "00" / "velodyne" / f"{len(gt) - 1:06d}.bin"),
+        capacity=131072, device=dev))
+    q = last.transform(pose).xyz.contiguous()
+    r = flat.points.contiguous()
+    rows.append(nn_shape_row(torch, "mapper defaults", q, r, pcfg.icp.max_correspondence_dist,
+                             counts["mapper_nn"]))
+
+    # -- the hashed grid against K1 on that patch -----------------------------
+    # ``query_nn`` is exact where none of the 27 probed buckets holds more
+    # than ``max_per_bucket`` points; elsewhere it may answer a farther
+    # point, never a closer one.
+    max_dist, budget = pcfg.icp.max_correspondence_dist, pcfg.icp.max_per_bucket
+    q_valid = q[:, 0].abs() < 1e7
+    ki, kd2 = cuda_nn.nn(q, r, max_dist)
+    hi, hd2, hfound = hashgrid.query_nn(hashed, q, q_valid, max_dist, max_per_bucket=budget)
+    kfound = q_valid & (kd2 <= max_dist ** 2)
+    both = kfound & hfound
+    probed = hashgrid.hash_key(hashgrid.voxel_key(q, hashed.cell)[:, None, :]
+                               + hashgrid._offsets27(dev)[None], hashed.table_size)
+    exact = both & (hashed.count[probed] <= budget).all(-1)
+    same_point = (r[ki] == hashed.points[hi]).all(-1)
+    # K1 forms d2 from coordinates de-meaned at the reference's centroid,
+    # the hashed grid from the coordinates as they are: 30 m coordinates
+    # round at 2e-6 m, which moves d2 <= 1 m^2 by up to ~1e-5 m^2.
+    tol = 2e-5
+    d2_err = float((kd2 - hd2)[exact].abs().max()) if bool(exact.any()) else 0.0
+    closer = int((both & (hd2 < kd2 - tol)).sum())
+    agree = float((kfound == hfound)[q_valid].float().mean())
+    ref = cuda_nn.prepare_ref(r)
+    k1_ms = cuda_ms(lambda: cuda_nn.nn(q, ref, max_dist), reps=50)
+    hash_ms = cuda_ms(lambda: hashgrid.query_nn(hashed, q, q_valid, max_dist,
+                                                max_per_bucket=budget), reps=20)
+    build_ms = cuda_ms(lambda: scan_processing.crop_submap_and_index(submap.cloud, pose[:3, 3],
+                                                                     **crop), reps=10)
+    mapper_ms, mapper_err = hashgrid_mapper_run(torch, dev, slam, gt)
+    phase("hashgrid matcher", shape=f"{q.shape[0]}x{r.shape[0]}",
+          valid=f"{int(q_valid.sum())}x{int((r[:, 0].abs() < 1e7).sum())}",
+          found_k1=int(kfound.sum()), found_hashgrid=int(hfound.sum()),
+          found_agree_share=f"{agree:.6f}", within_budget=int(exact.sum()),
+          same_point_within_budget=f"{float(same_point[exact].float().mean()):.6f}",
+          same_point_all=f"{float(same_point[both].float().mean()):.6f}",
+          max_abs_err_d2_within_budget=f"{d2_err:.3e}", closer_than_k1=closer,
+          k1_wrapper_ms=f"{k1_ms:.4f}", query_nn_ms=f"{hash_ms:.4f}",
+          crop_and_build_ms=f"{build_ms:.4f}", mapper_ms_per_scan=f"{mapper_ms:.3f}",
+          mapper_max_pose_err_m=f"{mapper_err:.4f}")
+    if bool((exact & ~same_point & ((kd2 - hd2).abs() > tol)).any()) or d2_err > tol:
+        fail(f"hashgrid matcher: within the bucket budget, {int((exact & ~same_point).sum())} "
+             f"queries found another point than K1's, d2 apart by up to {d2_err:.3e}")
+    if closer or not agree >= 0.999:
+        fail(f"hashgrid matcher: {closer} answers closer than the exact NN; found sets agree "
+             f"on {agree:.6f} of the valid queries")
+    if not mapper_err < 0.1:
+        fail(f"hashgrid matcher: the Mapper on the hashed grid ends {mapper_err:.3f} m off")
+
+    # -- one default GICP registration, card against CPU ----------------------
+    gicp_register(torch, cfg, prev, cur)
+
+    # -- one carve of the full-width submap with a KITTI-width scan ------------
+    mb = slam.params.mapper.map_builder
+    sc = mb.space_carving
+    i = len(gt) - 1
+    scan_map = kitti.read_velodyne_bin(str(KITTI_DIR / "sequences" / "00" / "velodyne"
+                                           / f"{i:06d}.bin"), device=dev).transform(pose)
+    kw = dict(carve_voxel_size=sc.voxel_size, truncation_distance=sc.truncation_distance,
+              max_ray_length=sc.max_raytracing_length)
+    host = dataclasses.replace(submap, **{f.name: getattr(submap, f.name).cpu()
+                                          for f in dataclasses.fields(submap)})
+    t0 = time.perf_counter()
+    on_card = voxel_map.carve(submap, scan_map, pose[:3, 3], **kw)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_cpu = voxel_map.carve(host, scan_map.to("cpu"), pose[:3, 3].cpu(), **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+
+    def tombstones(vm):
+        return set(HostCopy([torch.nonzero(vm.occupied & (vm.weight == 0.0))[:, 0]])
+                   .wait()[0].tolist())
+    before, card, cpu = tombstones(submap), tombstones(on_card), tombstones(on_cpu)
+    phase("carve", submap_capacity=submap.capacity, occupied=int(submap.occupied.sum()),
+          scan_points=int(scan_map.mask.sum()), tombstoned_before=len(before),
+          carved_card=len(card - before), carved_cpu=len(cpu - before),
+          differ=len(card ^ cpu), card_ms=f"{card_ms:.1f}", cpu_ms=f"{cpu_ms:.1f}")
+    if card != cpu or not card - before:
+        fail(f"carve: card and CPU tombstone {len(card - before)} and {len(cpu - before)} "
+             f"voxels, {len(card ^ cpu)} apart")
+    return rows
+
+
+def scan_overflow_policy(torch, dev, gt, n: int = 20):
+    """Phase ``scan overflow policy``: the odometry at the package defaults
+    over the lap's first ``n`` scans, once with each policy of the scan
+    path's voxel downsample for a scan with more voxels than lanes: the JAX
+    package's (the first 16384 in Morton order) and the port's (an even
+    spread).  Rejected jumps and end error against the ground truth."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import kitti
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.odometry import LidarOdometry
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+
+    scans = [f.scan for f in kitti.kitti_sequence(str(KITTI_DIR), max_frames=n, device=dev)]
+    params = load_parameters(None)
+    sp = params.odometry.scan_processing
+    voxels = int(filters.voxel_downsample(scans[0], sp.voxel_size, scans[0].capacity).mask.sum())
+    truth = np.linalg.inv(gt[0]) @ gt[n - 1]
+    real = filters.voxel_downsample
+    result = {}
+    try:
+        for policy in ("drop", "spread"):
+            filters.voxel_downsample = (
+                lambda *args, policy=policy, **kwargs: real(*args, **{**kwargs,
+                                                                     "overflow": policy}))
+            odo = LidarOdometry(params, device=dev)
+            for i, scan in enumerate(scans):
+                odo.add_range_scan(scan, 0.1 * i)
+            end = float(np.linalg.norm(odo.odom_to_range_sensor[:3, 3] - truth[:3, 3]))
+            result[policy] = (odo.rejected_jumps, odo.low_fitness, end)
+    finally:
+        filters.voxel_downsample = real
+    phase("scan overflow policy", scans=n, voxels_per_scan=voxels, lanes=sp.point_capacity,
+          **{f"{p}_{k}": v for p, (j, lf, e) in result.items()
+             for k, v in (("rejected_jumps", j), ("low_fitness", lf),
+                          ("end_err_m", f"{e:.4f}"))})
+    if result["spread"][0] or not result["spread"][2] < 0.1:
+        fail(f"scan overflow policy: the odometry on the spread voxels {result['spread']}")
+
+
+def gicp_register(torch, cfg, prev, cur):
+    """Phase ``gicp register``: one registration of two consecutive scans at
+    the odometry's default configuration (GICP, K1, polled), on the card
+    under torch's sync debug mode and on the CPU from the same clouds; the
+    host time of the call, the trips it dispatched and, from a traced
+    repeat, the device operations a trip."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import hashgrid
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.device import HostCopy
+
+    trips = {"n": 0}
+    step = icp.iteration_step
+
+    def counting(*args, **kwargs):
+        trips["n"] += 1
+        return step(*args, **kwargs)
+
+    def register(a, b):
+        grid = hashgrid.passthrough(b, cfg.max_correspondence_dist)
+        eye = torch.eye(4, dtype=torch.float32, device=a.xyz.device)
+        return icp.register(a, grid, eye, cfg, icp.prepare_reference(cfg, grid),
+                            poll_every=icp.POLL_EVERY)
+
+    icp.iteration_step = counting
+    try:
+        register(cur, prev)  # warm-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            trips["n"] = 0
+            t0 = time.perf_counter()
+            res = register(cur, prev)
+            dispatch_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode("default")
+        T, it = HostCopy([res.transform, res.iterations]).wait()
+        wait_ms = (time.perf_counter() - t0) * 1e3 - dispatch_ms
+        n_trips = trips["n"]
+        by_name, _ = trace_device_ops(torch, lambda: HostCopy([register(cur, prev).transform])
+                                      .wait())
+        traced = trips["n"] - n_trips
+        t0 = time.perf_counter()
+        host = register(cur.to("cpu"), prev.to("cpu"))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        icp.iteration_step = step
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    d_t, d_r = transform_difference(np.array(T), host.transform.numpy())
+    n_ops = sum(c for c, _ in by_name.values())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    phase("gicp register", shape=f"{cur.capacity}x{prev.capacity}",
+          valid=f"{int(cur.mask.sum())}x{int(prev.mask.sum())}", iterations=int(it),
+          iterations_cpu=int(host.iterations), trips_dispatched=n_trips,
+          host_syncs=len(syncs), dispatch_ms=f"{dispatch_ms:.2f}",
+          dispatch_ms_per_trip=f"{dispatch_ms / n_trips:.3f}", wait_ms=f"{wait_ms:.2f}",
+          device_ops_per_trip=f"{n_ops / max(traced, 1):.0f}",
+          device_busy_ms_per_trip=f"{busy_ms / max(traced, 1):.4f}", cpu_ms=f"{cpu_ms:.1f}",
+          diff_mm=f"{d_t * 1e3:.4f}", diff_mrad=f"{d_r * 1e3:.4f}")
+    if syncs:
+        fail("gicp register synchronised with the device at "
+             + ", ".join(sorted({f"{w.filename}:{w.lineno}" for w in syncs})))
+    if not (d_t <= 1e-3 and d_r <= 1e-3 and int(it) == int(host.iterations)):
+        fail(f"gicp register: card and CPU differ by {d_t * 1e3:.3f} mm, {d_r * 1e3:.3f} mrad, "
+             f"{int(it)} and {int(host.iterations)} iterations")
+
+
+def hashgrid_mapper_run(torch, dev, slam, gt, n: int = 16):
+    """A short Mapper run at the package defaults but ``matcher="hashgrid"``,
+    on the KITTI-layout scans with the ground truth as odometry: (ms a scan,
+    largest pose error)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import kitti
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import Mapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+
+    params = load_parameters({"mapper": {"mapper_localizer": {
+        "is_print_timing_information": False,
+        "scan_to_map_registration": {"matcher": "hashgrid"}}}})
+    frames = list(kitti.kitti_sequence(str(KITTI_DIR), max_frames=n, device=dev))
+    mapper = Mapper(params, device=dev)
+    if mapper.pipe_cfg.icp.matcher != "hashgrid":
+        fail(f"hashgrid matcher: the Mapper resolved {mapper.pipe_cfg.icp.matcher}")
+    t0 = time.perf_counter()
+    poses = run_loop(mapper, [f.scan for f in frames], gt[:n])
+    torch.cuda.synchronize()
+    err = max(float(np.linalg.norm(p[:3, 3] - gt[i][:3, 3])) for i, p in enumerate(poses))
+    return (time.perf_counter() - t0) / n * 1e3, err
+
+
+LOCALIZATION_BASE_LUA = """-- Base parameters in the reference's Lua schema.
+function deepcopy(orig, copies)
+    copies = copies or {}
+    if type(orig) == 'table' then
+        for k, v in next, orig, nil do end
+    end
+    return copy
+end
+
+DEFAULT_PARAMETERS = {
+    odometry = { scan_matching = { cloud_registration_type = "GeneralizedIcp" } },
+    map_builder = { map_voxel_size = 0.1, space_carving = { voxel_size = 0.2 } },
+    mapper_localizer = { is_attempt_loop_closures = true, map_merge_delay_in_seconds = 10.0 },
+    map_initializer = { init_pose = { x = 0.0, y = 0.0, z = 0.0 } },
+}
+"""
+
+LOCALIZATION_LUA = """-- Localization against a prior map, with space carving.
+include "base.lua"
+params = deepcopy(DEFAULT_PARAMETERS)
+params.map_builder.is_carving_enabled = true
+params.map_builder.space_carving.carve_space_every_n_scans = 2.0
+params.mapper_localizer.is_carving_enabled = true
+params.mapper_localizer.is_merge_scans_into_map = true
+params.mapper_localizer.map_merge_delay_in_seconds = 0.3
+params.map_initializer.init_pose = { x = 0.0, y = 0.0, z = 0.0, roll = 0.0, pitch = 0.0, yaw = 0.0 }
+return params
+"""
+
+
+def cli_localization(torch, dev, gt):
+    """Phase ``cli localization``: a Lua parameter file in the reference's
+    schema (an ``include`` of a base file, dotted assignments, carving on,
+    an ``init_pose`` block) and the map of ``cli kitti`` as the prior map;
+    the command line runs the first LOCALIZATION_SCANS scans of the lap.
+    The prior map is thinned first: the map initializer estimates kNN
+    normals over it by brute force, at a cost that grows with the square
+    of its points (map.pcd holds the voxel means of every submap).
+    Localization merges no scan into the prior map unless asked to, and
+    carving runs where a scan is merged, so the file asks for merging after
+    0.3 s."""
+    import dataclasses
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters, voxel_map
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.lua_config import (
+        load_lua_parameters)
+
+    d = OUT / "cli_localization"
+    d.mkdir(exist_ok=True)
+    # The prior map: cli kitti's map.pcd (the voxel means of all its
+    # submaps, overlaps included) thinned to one point per 0.2 m voxel.
+    saved = io.load_pcd(str(OUT / "cli_kitti" / "map.pcd"), device=dev)
+    prior = filters.voxel_downsample(saved, 0.2, saved.capacity, order="lex")
+    io.save_pcd(str(d / "prior.pcd"), prior)
+    (d / "base.lua").write_text(LOCALIZATION_BASE_LUA)
+    (d / "localization.lua").write_text(LOCALIZATION_LUA)
+    params, warns = load_lua_parameters(str(d / "localization.lua"))
+    mb = params.mapper.map_builder
+    expected = {"is_carving_enabled": (mb.is_carving_enabled, True),
+                "carve_space_every_n_scans": (mb.space_carving.carve_space_every_n_scans, 2.0),
+                "carve voxel_size": (mb.space_carving.voxel_size, 0.2),
+                "mapper_localizer.is_carving_enabled": (
+                    params.mapper.mapper_localizer.is_carving_enabled, True),
+                "is_merge_scans_into_map": (
+                    params.mapper.mapper_localizer.is_merge_scans_into_map, True),
+                "map_merge_delay_in_seconds": (
+                    params.mapper.mapper_localizer.map_merge_delay_in_seconds, 0.3),
+                "init_pose": (dataclasses.astuple(params.mapper.map_initializer.init_pose),
+                              (0.0,) * 6),
+                "cloud_registration_type": (
+                    params.odometry.scan_matching.cloud_registration_type, "GeneralizedIcp")}
+    wrong = {k: v for k, v in expected.items() if v[0] != v[1]}
+    carves = {"n": 0}
+    carve = voxel_map.carve
+
+    def counting(*args, **kwargs):
+        carves["n"] += 1
+        return carve(*args, **kwargs)
+
+    counting_run = _Counting()
+    voxel_map.carve = counting
+    t0 = time.perf_counter()
+    try:
+        rc, lines, err = run_cli(["--dataset", "kitti", "--kitti-root", str(KITTI_DIR),
+                                  "--max-frames", str(LOCALIZATION_SCANS),
+                                  "--params", str(d / "localization.lua"),
+                                  "--initial-map", str(d / "prior.pcd"),
+                                  "--output", str(d / "out"), "--eval-ate"])
+        torch.cuda.synchronize()
+    finally:
+        voxel_map.carve = carve
+        counting_run.restore()
+    wall = time.perf_counter() - t0
+    slam = counting_run.slams[0]
+    end = slam.trajectory_poses[-1]
+    truth = np.linalg.inv(gt[0]) @ gt[LOCALIZATION_SCANS - 1]
+    end_err = float(np.linalg.norm(end[:3, 3] - truth[:3, 3]))
+    loader_lines = [line for line in err.splitlines() if line.startswith("[params]")]
+    phase("cli localization", scans=len(slam.trajectory_poses), seconds=f"{wall:.1f}",
+          prior_map_points=f"{int(prior.mask.sum())}/{int(saved.mask.sum())}",
+          loader_warnings=len(warns) + len(loader_lines), wrong_values=len(wrong),
+          carving_enabled=slam.params.mapper.map_builder.is_carving_enabled,
+          carves=carves["n"], submaps=len(slam.mapper.submaps.submaps),
+          end_err_m=f"{end_err:.4f}", result=lines[-1] if lines else None)
+    if rc != 0 or len(slam.trajectory_poses) != LOCALIZATION_SCANS:
+        fail(f"cli localization: exit code {rc}, {len(slam.trajectory_poses)} poses")
+    if wrong or warns or loader_lines or not slam.params.mapper.map_builder.is_carving_enabled:
+        fail(f"cli localization: the Lua file loaded with warnings {warns + loader_lines} "
+             f"and these values off: {wrong}")
+    if carves["n"] < 1:
+        fail("cli localization: carving never ran")
+    if not end_err < 0.05:
+        fail(f"cli localization: the last pose is {end_err:.3f} m from the ground truth")
+
+
 def main() -> None:
     import torch
 
@@ -1326,9 +1960,17 @@ def main() -> None:
     pose_graph_solve(torch, dev, *last_solve)
     profile_slam_loop(torch, dev, *slam_run)
 
+    # -- 8. the command-line path at the package defaults ----------------------
+    kitti_gt = write_kitti_sequence(torch, dev)
+    cli_slam, cli_launches, cli_counts = cli_kitti(torch, dev, kitti_gt)
+    new_rows += cli_default_shapes(torch, dev, cli_slam, cli_counts, kitti_gt)
+    scan_overflow_policy(torch, dev, kitti_gt)
+    cli_localization(torch, dev, kitti_gt)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_slam_loop"] = slam_launches[row["name"]]
+        row["launches_cli_kitti"] = cli_launches[row["name"]]
     kernels += new_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

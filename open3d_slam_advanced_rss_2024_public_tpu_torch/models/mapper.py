@@ -378,6 +378,13 @@ class Mapper:
                     if changed:
                         rolled = True
                         new_roll = True
+                    elif sc.active_submap.map is not self._state.map:
+                        # Carving replaced the table: it ran on the chain-end
+                        # table, so it becomes the chained state and nothing
+                        # dispatched is lost.
+                        self._state = pipeline.MapState(
+                            map=sc.active_submap.map, pose=self._state.pose,
+                            last_insertion_pose=self._state.last_insertion_pose)
                 else:
                     # Records behind a rollover: their device fusion landed
                     # in the closed submap; re-fuse them into the fresh one.

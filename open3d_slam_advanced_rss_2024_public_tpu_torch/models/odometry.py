@@ -6,10 +6,17 @@ register against the previous scan (:45-55), jump rejection > 0.8 m
 (:58-63), fitness gate > 0.1 (:66), cumulative pose integration (:83-92);
 bypassed when an external odometry source feeds the pose buffer (:40-43).
 
-The matcher resolves through ``mapper.resolve_matcher("auto")``: kernel K1
-on CUDA tensors, its plain twin on the CPU.  The previous scan goes in as a
-passthrough grid (the matcher reads points and normals only) with K1's
-reference prepared once.  The pose and fitness of each registration are read
+The registration type selects the minimizer as in the JAX package
+(``odometry.py:35-45``): the package default ``GeneralizedIcp`` runs GICP,
+``PointToPointIcp`` and ``PointToPlaneIcp`` the other two.  The matcher
+resolves through ``mapper.resolve_matcher("auto")``: kernel K1 on CUDA
+tensors, its plain twin on the CPU.  The JAX package builds the hashed grid
+of the previous scan (``odometry.py:74``, ``:93``) but matches it by brute
+force, which reads only the grid's points and normals (in the grid's
+bucket order); the port hands the previous scan over as a passthrough grid
+in its own Morton order instead, with K1's reference prepared once.  The
+same points, another order: only exact distance ties could pick another
+neighbour.  The pose and fitness of each registration are read
 back through one pinned copy and its event: odometry integrates on the host
 and cannot run ahead of its own result.
 """

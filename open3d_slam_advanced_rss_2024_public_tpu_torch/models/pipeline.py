@@ -104,7 +104,8 @@ def _step(state: MapState, raw_scan: PointCloud, estimate_T: Tensor,
     _, grid = scan_processing.crop_submap_and_index(
         state.map.cloud, estimate_T[:3, 3], min_radius=0.0,
         max_radius=cfg.crop_max_radius, match_dist=cfg.icp.max_correspondence_dist,
-        capacity=cfg.map_patch_capacity, build_hash=False)
+        capacity=cfg.map_patch_capacity,
+        build_hash=cfg.icp.matcher == "hashgrid")
     res = icp_mod.register(match, grid, estimate_T, cfg.icp)
     empty_map = state.map.count() == 0
     T, insert_ok = _gate(cfg, res, estimate_T, empty_map, state.last_insertion_pose,
@@ -196,7 +197,8 @@ def mapper_step_block_shared_ref(state: MapState, scans: PointCloud,
         state.map.cloud, state.pose[:3, 3], min_radius=0.0,
         max_radius=cfg.crop_max_radius + cfg.block_ref_margin,
         match_dist=cfg.icp.max_correspondence_dist,
-        capacity=cfg.map_patch_capacity, build_hash=False)
+        capacity=cfg.map_patch_capacity,
+        build_hash=cfg.icp.matcher == "hashgrid")
     nn_ref = icp_mod.prepare_reference(cfg.icp, grid)
     empty_map = state.map.count() == 0
     pose, last_ins = state.pose, state.last_insertion_pose

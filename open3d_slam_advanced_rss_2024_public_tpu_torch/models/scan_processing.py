@@ -35,7 +35,13 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
                     normal_knn: int = 10, seed: int = 0,
                     normal_engine: str = "auto") -> PointCloud:
     """Wide crop -> voxel downsample (Morton order) -> normals.
-    ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45)."""
+    ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45).
+
+    Where the scan has more voxels than ``capacity`` (a 120000-point
+    scan at 0.1 m holds ~100000), an even spread of them is kept; the JAX
+    package keeps the first ``capacity`` in Morton order, one corner of
+    the scan, on which the package defaults lose track of a KITTI-width
+    sequence (``PERF.md``)."""
     if downsampling_ratio < 1.0:
         raise NotImplementedError(
             "random downsampling is not ported yet (ROADMAP §1, slice 3: filters)")
@@ -43,7 +49,8 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
     scan = filters.remove_non_finite(scan)
     wide = croppers.min_max_radius_cropper(wide_min_radius, wide_max_radius)
     scan = scan.with_mask(wide.contains(scan.xyz))
-    out = filters.voxel_downsample(scan, voxel_size, capacity, order="morton")
+    out = filters.voxel_downsample(scan, voxel_size, capacity, order="morton",
+                                   overflow="spread")
     if estimate_scan_normals and engine == "moments":
         out = normals.estimate_normals_radius(out, radius=normal_radius)
     elif estimate_scan_normals:
@@ -61,14 +68,13 @@ def crop_submap_and_index(map_cloud: PointCloud, robot_position: Tensor,
                           min_radius, max_radius, match_dist, capacity: int,
                           table_size: int = 1 << 15, build_hash: bool = True):
     """Crop the active submap around the robot and build the matcher grid
-    (≙ ScanToMapIcp::cropSubmap, ScanToMapRegistration.cpp:90-96).  The
-    brute-force and kernel matchers take the Morton-sorted patch as it is
-    (``build_hash=False``); the hashed grid is not ported yet."""
-    if build_hash:
-        raise NotImplementedError(
-            "the hashed matcher grid is not ported yet (ROADMAP §1 item 12)")
+    (≙ ScanToMapIcp::cropSubmap, ScanToMapRegistration.cpp:90-96, and
+    ICP::initReference's matcher build, ICP.cpp:291-326): the hashed grid
+    for the hashed matcher (``build_hash``), else the Morton-sorted patch,
+    on which the NN kernel's tiles stay spatially tight."""
     rel = torch.where(map_cloud.mask[:, None], map_cloud.xyz - robot_position, 0.0)
     r = torch.sqrt((rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1]) + rel[:, 2] * rel[:, 2])
     patch = compact(map_cloud.with_mask((r >= min_radius) & (r <= max_radius)), capacity)
-    grid = hashgrid.passthrough(hashgrid.morton_sort(patch, match_dist), match_dist)
-    return patch, grid
+    if build_hash:
+        return patch, hashgrid.build(patch, match_dist, table_size=table_size)
+    return patch, hashgrid.passthrough(hashgrid.morton_sort(patch, match_dist), match_dist)

@@ -6,8 +6,8 @@ SubmapCollection.cpp:28-409): active-submap selection, new submap on travel
 distance or point budget, the scan-overlap buffer replayed into fresh
 submaps, the dense map, the finished-submap queue for feature computation,
 the loop-closure candidate queue, and optimized pose-graph transforms
-applied with parent-chain propagation.  Carving is not ported yet and
-raises where enabled.
+applied with parent-chain propagation, and periodic space carving of the
+active submap.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 from ..ops import filters, fpfh, voxel_map
 from ..ops import normals as normals_ops
 from ..utils.config import MapperParameters
+from ..utils.device import to_device
 from ..utils.pointcloud import PointCloud
 from .submap import AdjacencyMatrix, Submap
 
@@ -31,9 +32,6 @@ def _resolve(cloud_or_thunk) -> PointCloud:
 
 class SubmapCollection:
     def __init__(self, params: MapperParameters, device="cuda"):
-        if params.map_builder.is_carving_enabled:
-            raise NotImplementedError(
-                "space carving is not ported yet (ROADMAP §1 item 12)")
         self.params = params
         self.device = device
         self.submaps: List[Submap] = []
@@ -108,6 +106,23 @@ class SubmapCollection:
         else:
             self._create_new_submap(map_to_range_sensor, time)
 
+    def _maybe_carve(self, scan_map_frame, map_to_range_sensor: np.ndarray) -> None:
+        """Ray-cast space carving of the active submap every N scans (≙
+        Submap::insertScan's carving branch, Submap.cpp:56-80)."""
+        mb = self.params.map_builder
+        if not mb.is_carving_enabled:
+            return
+        every = max(int(mb.space_carving.carve_space_every_n_scans), 1)
+        sm = self.active_submap
+        if sm.n_scans == 0 or sm.n_scans % every != 0:
+            return
+        sm.map = voxel_map.carve(
+            sm.map, _resolve(scan_map_frame),
+            to_device(np.asarray(map_to_range_sensor)[:3, 3], sm.map.device),
+            carve_voxel_size=mb.space_carving.voxel_size,
+            truncation_distance=mb.space_carving.truncation_distance,
+            max_ray_length=mb.space_carving.max_raytracing_length)
+
     def ensure_active(self, map_to_range_sensor: np.ndarray, time: float) -> None:
         """Create the first submap if none exists."""
         if not self.submaps:
@@ -127,6 +142,11 @@ class SubmapCollection:
             (merge_cloud_map_frame, np.asarray(map_to_range_sensor), time))
         self.submaps[self.active_idx].n_scans += 1
         changed = self.lifecycle_check(map_to_range_sensor, time, active_count=active_count)
+        if not changed:
+            # After the insert, where the JAX package carves too: only
+            # free space short of the truncation boundary is cleared, so
+            # the surface just inserted stays.
+            self._maybe_carve(merge_cloud_map_frame, map_to_range_sensor)
         self.num_scans_merged_in_active += 1
         return changed
 
@@ -183,6 +203,7 @@ class SubmapCollection:
             self._finish_rollover(prev_active, time)
         else:
             sm = self.active_submap
+            self._maybe_carve(merge_cloud_map_frame, map_to_range_sensor)
             sm.map = voxel_map.insert(sm.map, merge_cloud_map_frame, voxel)
             sm.n_scans += 1
         self.num_scans_merged_in_active += 1

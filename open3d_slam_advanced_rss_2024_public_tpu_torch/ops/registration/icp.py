@@ -17,9 +17,13 @@ dispatching once a copy that has landed says converged.  The host still
 never waits, and the result is the fixed-trip result, because the carry is
 frozen from the converged trip on.
 
-Ported: the point-to-plane minimizer, the default outlier chain
-(trimmed distance + normal gate), the kernel and brute-force matchers, and
-the differential and counter checkers.
+The whole surface of the JAX package's ICP loop is here but the parts that
+need descriptor channels (the ``max_dist_field`` gate and the
+``generic_desc`` filter, ROADMAP §1 item 17) and the sharded matcher
+(item 19): every minimizer (point-to-plane with its 4-DOF and 2-D
+restrictions, point-to-point, GICP, similarity, identity), kNN matching,
+the ``outlier_chain`` filters, the bound checker, and the kernel,
+brute-force and hashed-grid matchers.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 from ...utils import se3
 from ...utils.device import HostCopy
 from ...utils.pointcloud import PointCloud
-from .. import bruteforce, cuda_nn
+from .. import bruteforce, cuda_nn, hashgrid
 from ..hashgrid import HashGrid
 from . import minimizers, outliers
 
@@ -39,6 +43,7 @@ Tensor = torch.Tensor
 
 # Matcher names that select kernel K1 ("pallas" keeps JAX parameter files valid).
 KERNEL_MATCHERS = ("cuda", "pallas")
+MATCHERS = KERNEL_MATCHERS + ("bruteforce", "hashgrid")
 # Trips between two non-blocking looks at a loop's device-side done flag, for
 # every loop whose caller reads its result back anyway (``register`` with
 # ``poll_every``, the pose graph's LM loop).
@@ -71,7 +76,7 @@ class ICPConfig:
     outlier_chain: Optional[tuple] = None
     bound_max_rot: Optional[float] = None
     bound_max_trans: Optional[float] = None
-    # "cuda" (kernel K1; alias "pallas") or "bruteforce".
+    # "cuda" (kernel K1; alias "pallas"), "bruteforce" or "hashgrid".
     matcher: str = "bruteforce"
     shard_axis: Optional[str] = None
 
@@ -96,56 +101,101 @@ class ICPResult:
 
 def check_supported(cfg: ICPConfig) -> None:
     """Raise on the parts of the JAX package's ICP surface not ported yet."""
+    chain = cfg.outlier_chain or ()
     later = {
-        "minimizer": (cfg.minimizer != "point_to_plane", "ROADMAP §1 item 17"),
-        "force4dof/force2d": (cfg.force4dof or cfg.force2d, "ROADMAP §1 item 17"),
-        "knn > 1": (cfg.knn != 1, "ROADMAP §1 item 17"),
-        "max_dist_field": (cfg.max_dist_field is not None, "ROADMAP §1 item 17"),
-        "robust_kernel": (cfg.robust_kernel is not None, "ROADMAP §1 item 17"),
-        "outlier_chain": (cfg.outlier_chain is not None, "ROADMAP §1 item 17"),
-        "bound checker": (cfg.bound_max_rot is not None
-                          or cfg.bound_max_trans is not None, "ROADMAP §1 item 17"),
-        "matcher='hashgrid'": (cfg.matcher == "hashgrid", "ROADMAP §1 item 12"),
+        "max_dist_field (descriptor channels)": (cfg.max_dist_field is not None,
+                                                 "ROADMAP §1 item 17"),
+        "outlier filter 'generic_desc' (descriptor channels)": (
+            any(entry[0] == "generic_desc" for entry in chain), "ROADMAP §1 item 17"),
         "matcher='sharded'": (cfg.matcher == "sharded" or cfg.shard_axis is not None,
                               "ROADMAP §1 item 19"),
     }
     for what, (used, item) in later.items():
         if used:
             raise NotImplementedError(f"ICP {what} is not ported yet ({item})")
-    if cfg.matcher not in KERNEL_MATCHERS + ("bruteforce",):
+    if cfg.matcher not in MATCHERS:
         raise ValueError(f"unknown matcher: {cfg.matcher!r}")
 
 
-def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask):
-    """The default outlier chain (``icp.py:175-181``)."""
+def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask, p2plane_sq):
+    """Compose the outlier-filter chain into per-correspondence weights
+    (``icp.py:115-181``).  ``slot_mask`` is the quantile basis (valid
+    reading lanes x knn, not-found matches included as +inf);
+    ``p2plane_sq`` the squared point-to-plane residuals that the robust
+    filter's point2plane distance reads."""
+    if cfg.outlier_chain is not None:
+        w = found.to(torch.float32)
+        for entry in cfg.outlier_chain:
+            name, params = entry[0], entry[1:]
+            if name == "trimmed":
+                w = w * outliers.trimmed_dist_weights(sq_dists, found, *params,
+                                                      slot_mask=slot_mask)
+            elif name == "surface_normal":
+                w = w * outliers.surface_normal_weights(src_nrm, ref_nrm, found, *params)
+            elif name == "var_trimmed":
+                w = w * outliers.var_trimmed_dist_weights(sq_dists, found, *params)
+            elif name == "median":
+                w = w * outliers.median_dist_weights(sq_dists, found, *params,
+                                                     slot_mask=slot_mask)
+            elif name == "max_dist":
+                w = w * outliers.max_dist_weights(sq_dists, found, *params)
+            elif name == "min_dist":
+                w = w * outliers.min_dist_weights(sq_dists, found, *params)
+            elif name == "robust":
+                kind, tuning, scale_est, dist_type, approx = params
+                w = w * outliers.robust_weights(
+                    sq_dists, found, kind, tuning, scale_estimator=scale_est,
+                    p2plane_sq=p2plane_sq, distance_type=dist_type, approximation=approx)
+            elif name != "null":
+                raise ValueError(f"unknown outlier filter: {name}")
+        return w
     w = outliers.trimmed_dist_weights(sq_dists, found, cfg.trimmed_ratio,
                                       slot_mask=slot_mask)
     if cfg.use_normal_gate:
         w = w * outliers.surface_normal_weights(src_nrm, ref_nrm, found,
                                                 cfg.normal_max_angle)
+    if cfg.robust_kernel is not None:
+        w = w * outliers.robust_weights(sq_dists, found, cfg.robust_kernel, cfg.robust_k)
     return w
 
 
 def prepare_reference(cfg: ICPConfig, ref_grid: HashGrid) -> Optional[cuda_nn.NNRef]:
     """What the matcher derives from the reference alone, computed once for
     every registration against ``ref_grid`` (kernel K1's prepared
-    reference; the brute-force matcher needs nothing)."""
-    if cfg.matcher in KERNEL_MATCHERS:
+    reference; the other matchers need nothing)."""
+    if cfg.matcher in KERNEL_MATCHERS and cfg.knn == 1:
         return cuda_nn.prepare_ref(ref_grid.points)
     return None
 
 
-def _match(cfg: ICPConfig, src: Tensor, mask: Tensor, ref_grid: HashGrid,
+def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid: HashGrid,
            nn_ref: Optional[cuda_nn.NNRef] = None):
-    """Correspondence search -> (ref_pts, ref_nrm, d2, found)."""
+    """Correspondence search honouring ``cfg.matcher`` and ``cfg.knn``.
+    Returns per-correspondence (src, src_nrm, slot_mask, ref_pts, ref_nrm,
+    d2, found), flattened to [N * knn], and per_point_found [N]."""
+    if cfg.knn > 1:
+        # kNN matches stack as correspondences (KDTreeMatcher knn > 1 ≙
+        # stacked ErrorElements, MatchersImpl.cpp:118-133), on the
+        # brute-force top-k whatever the matcher, as in the JAX package.
+        k = cfg.knn
+        idx, d2, ok = bruteforce.knn(src, mask, ref_grid.points,
+                                     cfg.max_correspondence_dist, k=k)
+        flat = idx.reshape(-1)
+        return (src.repeat_interleave(k, dim=0), src_nrm.repeat_interleave(k, dim=0),
+                mask.repeat_interleave(k), ref_grid.points[flat], ref_grid.normals[flat],
+                d2.reshape(-1), ok.reshape(-1), ok.any(-1))
     if cfg.matcher in KERNEL_MATCHERS:
         idx, d2 = cuda_nn.nn(src, ref_grid.points if nn_ref is None else nn_ref,
                              cfg.max_correspondence_dist)
         found = mask & (d2 <= cfg.max_correspondence_dist ** 2)
-    else:
+    elif cfg.matcher == "bruteforce":
         idx, d2, found = bruteforce.nn(src, mask, ref_grid.points,
                                        cfg.max_correspondence_dist)
-    return ref_grid.points[idx], ref_grid.normals[idx], d2, found
+    else:
+        idx, d2, found = hashgrid.query_nn(ref_grid, src, mask, cfg.max_correspondence_dist,
+                                           max_per_bucket=cfg.max_per_bucket)
+    return (src, src_nrm, mask, ref_grid.points[idx], ref_grid.normals[idx], d2, found,
+            found)
 
 
 def reference_centroid(ref_grid: HashGrid) -> Tensor:
@@ -157,25 +207,81 @@ def reference_centroid(ref_grid: HashGrid) -> Tensor:
     return total / torch.clamp(nref, min=1.0)
 
 
+def _disk_cov(n: Tensor, eps: float = 1e-3) -> Tensor:
+    """GICP's plane-disk covariance from a normal: unit variance in the
+    plane, ``eps`` along the normal (Open3D's GeneralizedICP model)."""
+    return (torch.eye(3, dtype=n.dtype, device=n.device)
+            - (1.0 - eps) * (n[..., :, None] * n[..., None, :]))
+
+
+def _matched(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid, T: Tensor,
+             nn_ref: Optional[cuda_nn.NNRef]):
+    """Match the source under ``T`` and weigh the matches: (src, src_nrm,
+    ref_pts, ref_nrm, found, per_point_found, weights)."""
+    src = se3.apply(T, source.xyz)
+    src_nrm = se3.rotate(T, source.normals)
+    src, src_nrm, slot_mask, ref_pts, ref_nrm, d2, found, per_point_found = _match(
+        cfg, src, src_nrm, source.mask, ref_grid, nn_ref)
+    pp = ((src - ref_pts) * ref_nrm).sum(-1)
+    w = _weights(cfg, d2, found, src_nrm, ref_nrm, slot_mask, pp * pp)
+    return src, src_nrm, ref_pts, ref_nrm, found, per_point_found, w
+
+
 def iteration_step(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid,
                    centroid: Tensor, T: Tensor, nn_ref: Optional[cuda_nn.NNRef] = None):
     """One ICP iteration: match -> weigh -> minimize -> compose.
     Returns (T_new, rot_delta, trans_delta, match_ratio, rmse)."""
-    src = se3.apply(T, source.xyz)
-    src_nrm = se3.rotate(T, source.normals)
-    ref_pts, ref_nrm, d2, found = _match(cfg, src, source.mask, ref_grid, nn_ref)
-    w = _weights(cfg, d2, found, src_nrm, ref_nrm, slot_mask=source.mask)
+    src, src_nrm, ref_pts, ref_nrm, found, per_point_found, w = _matched(
+        cfg, source, ref_grid, T, nn_ref)
     src_c = torch.where(found[:, None], src - centroid, 0.0)
     ref_c = torch.where(found[:, None], ref_pts - centroid, 0.0)
-    xi, mean_sq = minimizers.point_to_plane_step(src_c, ref_c, ref_nrm, w, cfg.damping)
-    dT = se3.se3_exp(xi)
-    I = torch.eye(3, dtype=T.dtype, device=T.device)
-    shift = se3.make_transform(I, centroid)
+    if cfg.minimizer == "point_to_plane":
+        xi, mean_sq = minimizers.point_to_plane_step(src_c, ref_c, ref_nrm, w, cfg.damping,
+                                                     force4dof=cfg.force4dof,
+                                                     force2d=cfg.force2d)
+    elif cfg.minimizer == "point_to_point":
+        xi, mean_sq = minimizers.point_to_point_step(src_c, ref_c, w)
+    elif cfg.minimizer == "similarity":
+        # The scaled closed form composes directly; the checker's deltas
+        # come from its rigid part.
+        S, scale_s = minimizers.point_to_point_umeyama(src_c, ref_c, w, with_scale=True)
+        mean_sq = minimizers.point_to_point_mean_sq(src_c, ref_c, w)
+    elif cfg.minimizer == "identity":
+        xi = torch.zeros((6,), dtype=src.dtype, device=src.device)
+        mean_sq = minimizers.point_to_point_mean_sq(src_c, ref_c, w)
+    elif cfg.minimizer == "gicp":
+        xi, mean_sq = minimizers.gicp_step(src_c, ref_c, _disk_cov(src_nrm), _disk_cov(ref_nrm),
+                                           w, cfg.damping)
+    else:
+        raise ValueError(f"unsupported minimizer: {cfg.minimizer}")
+    if cfg.minimizer == "similarity":
+        dT = S
+        rot_delta = se3.rotation_angle(se3.make_transform(
+            S[:3, :3] / torch.clamp(scale_s, min=1e-9), S[:3, 3]))
+        trans_delta = torch.linalg.vector_norm(S[:3, 3])
+    else:
+        dT = se3.se3_exp(xi)
+        rot_delta = torch.linalg.vector_norm(xi[:3])
+        trans_delta = torch.linalg.vector_norm(xi[3:])
+    shift = se3.make_transform(torch.eye(3, dtype=T.dtype, device=T.device), centroid)
     T_new = shift @ dT @ se3.inverse(shift) @ T
     n_valid = torch.clamp(source.mask.sum(dtype=torch.float32), min=1.0)
-    match_ratio = found.sum(dtype=torch.float32) / n_valid
-    return (T_new, torch.linalg.vector_norm(xi[:3]), torch.linalg.vector_norm(xi[3:]),
-            match_ratio, torch.sqrt(mean_sq))
+    match_ratio = per_point_found.sum(dtype=torch.float32) / n_valid
+    return T_new, rot_delta, trans_delta, match_ratio, torch.sqrt(mean_sq)
+
+
+def _out_of_bounds(cfg: ICPConfig, T: Tensor, init_inv: Tensor) -> Tensor:
+    """BoundTransformationChecker (TransformationCheckersImpl.h:117-141):
+    the accumulated correction against the initial guess beyond a bound."""
+    bad = torch.zeros((), dtype=torch.bool, device=T.device)
+    if cfg.bound_max_rot is None and cfg.bound_max_trans is None:
+        return bad
+    delta = T @ init_inv
+    if cfg.bound_max_rot is not None:
+        bad = bad | (se3.rotation_angle(delta) > cfg.bound_max_rot)
+    if cfg.bound_max_trans is not None:
+        bad = bad | (se3.translation_norm(delta) > cfg.bound_max_trans)
+    return bad
 
 
 def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
@@ -185,10 +291,11 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
     maps the source frame into the reference frame.  ``nn_ref`` is
     ``prepare_reference(cfg, ref_grid)`` where the caller registers several
     scans against one grid; without it the reference is prepared here, once
-    for all iterations.  No host synchronisation: the stopping test stays
-    on the device.  ``poll_every`` > 0 stops dispatching trips once a
-    non-blocking look at the converged flag, taken every ``poll_every``
-    trips, shows convergence (same result, fewer launches)."""
+    for all iterations.  No host synchronisation: the stopping tests (the
+    differential checker, the counter, the bound checker) stay on the
+    device.  ``poll_every`` > 0 stops dispatching trips once a non-blocking
+    look at the done flag, taken every ``poll_every`` trips, shows that
+    the loop has stopped (same result, fewer launches)."""
     check_supported(cfg)
     if nn_ref is None:
         nn_ref = prepare_reference(cfg, ref_grid)
@@ -196,6 +303,7 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
     centroid = reference_centroid(ref_grid)
     smooth = max(cfg.smooth_length, 1)
     T = init_T.to(torch.float32)
+    init_inv = se3.inverse(T)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     ring = torch.full((smooth, 2), float("inf"), dtype=torch.float32, device=dev)
     match_ratio = torch.zeros((), dtype=torch.float32, device=dev)
@@ -209,17 +317,63 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
     for trip in range(cfg.max_iterations):
         if any(p.ready() and bool(p.host[0]) for p in polls):
             break
-        active = (it < smooth) | ~converged_of(ring)
+        active = ((it < smooth) | ~converged_of(ring)) & ~_out_of_bounds(cfg, T, init_inv)
         if poll_every > 0 and trip > 0 and trip % poll_every == 0:
             polls.append(HostCopy([~active]))
-        T_new, rot_d, trans_d, mr, rm = iteration_step(cfg, source, ref_grid, centroid, T, nn_ref)
+        T_new, rot_d, trans_d, mr, rm = iteration_step(cfg, source, ref_grid, centroid, T,
+                                                       nn_ref)
         ring_new = torch.cat([torch.stack([rot_d, trans_d])[None], ring[:-1]])
         T = torch.where(active, T_new, T)
         ring = torch.where(active, ring_new, ring)
         match_ratio = torch.where(active, mr, match_ratio)
         rmse = torch.where(active, rm, rmse)
         it = it + active.to(torch.int32)
-    diverged = torch.zeros((), dtype=torch.bool, device=dev)
-    return ICPResult(transform=se3.orthonormalize(T), iterations=it,
-                     converged=converged_of(ring), match_ratio=match_ratio,
+    diverged = _out_of_bounds(cfg, T, init_inv)
+    if cfg.minimizer == "similarity":
+        # Keep the estimated scale: factor T = s R | t, re-orthonormalize R
+        # and apply s again (a plain orthonormalize would erase it).
+        s = torch.pow(torch.clamp(se3.det_3x3(T[:3, :3]), min=1e-12), 1.0 / 3.0)
+        T_out = se3.orthonormalize(se3.make_transform(T[:3, :3] / s, T[:3, 3]))
+        T_out = se3.make_transform(s * T_out[:3, :3], T_out[:3, 3])
+    else:
+        T_out = se3.orthonormalize(T)
+    return ICPResult(transform=T_out, iterations=it,
+                     converged=converged_of(ring) & ~diverged, match_ratio=match_ratio,
                      rmse=rmse, diverged=diverged)
+
+
+def register_clouds(source: PointCloud, reference: PointCloud, init_T: Tensor,
+                    cfg: ICPConfig = ICPConfig(), table_size: int = 1 << 14) -> ICPResult:
+    """Build the reference grid, then register (≙ CloudRegistration::
+    registerClouds, CloudRegistration.cpp:57-61, for one-shot use)."""
+    grid = hashgrid.build(reference, cfg.max_correspondence_dist, table_size=table_size)
+    return register(source, grid, init_T, cfg)
+
+
+def register_with_covariance(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
+                             cfg: ICPConfig = ICPConfig(), sensor_std: float = 0.01):
+    """Register, then return (ICPResult, 6x6 solution covariance) evaluated
+    at the converged pose over the final correspondence set, with the
+    solve's matcher (≙ PointToPlaneWithCov / PointToPointWithCov)."""
+    res = register(source, ref_grid, init_T, cfg)
+    src, _, _, ref_nrm, found, _, w = _matched(cfg, source, ref_grid, res.transform,
+                                               prepare_reference(cfg, ref_grid))
+    src_c = torch.where(found[:, None], src - reference_centroid(ref_grid), 0.0)
+    if cfg.minimizer == "point_to_plane":
+        return res, minimizers.point_to_plane_covariance(src_c, ref_nrm, w, sensor_std)
+    return res, minimizers.point_to_point_covariance(src_c, w, sensor_std)
+
+
+def evaluate_registration(source: PointCloud, target_grid: HashGrid, T: Tensor,
+                          max_dist: float, max_per_bucket: int = 32):
+    """Open3D-style (fitness, inlier_rmse) of a candidate transform
+    (EvaluateRegistration, as PlaceRecognition.cpp:117-121 uses it), with
+    kernel K1 as the exact matcher (the JAX package's brute force; its
+    plain twin on CPU tensors)."""
+    src = se3.apply(T, source.xyz)
+    _, d2 = cuda_nn.nn(src, target_grid.points, max_dist)
+    found = source.mask & (d2 <= float(max_dist) ** 2)
+    n_valid = torch.clamp(source.mask.sum(dtype=torch.float32), min=1.0)
+    n_found = found.sum(dtype=torch.float32)
+    inlier_sq = torch.where(found, d2, 0.0).sum() / torch.clamp(n_found, min=1.0)
+    return n_found / n_valid, torch.sqrt(inlier_sq)

@@ -22,52 +22,30 @@ import torch
 
 from ...utils import se3
 from ...utils.device import to_device
-from .. import bruteforce, cuda_nn
+from .. import bruteforce, cuda_nn, hashgrid
 from .. import fpfh as fpfh_ops
 
 Tensor = torch.Tensor
 
 
-def _quat_to_rot(q: Tensor) -> Tensor:
-    """Unit quaternion [B, 4] (w, x, y, z) -> rotation matrix [B, 3, 3]."""
-    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
-    return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
-    ], dim=1)
+# The quaternion helpers live in ``utils/se3.py``, shared with the
+# point-to-point minimizer.
+_quat_to_rot = se3.quat_to_matrix
 
 
 def _kabsch_3pt(src: Tensor, dst: Tensor):
     """Closed-form rigid alignment of 3 point pairs.  src, dst: [B, 3, 3].
 
-    Horn's quaternion form with 30 shifted power steps for the dominant
-    eigenvector of the 4x4 profile matrix, step for step as the JAX package
-    does it: a batched SVD or eigendecomposition of thousands of tiny
-    matrices is a poor fit for the GPU's dense solvers and would pick other
-    rotations for degenerate triplets (collinear points, tied eigenvalues),
-    which the checkers and the inlier score reject either way.
+    Horn's quaternion form with 30 shifted power steps
+    (``se3.horn_rotation``), step for step as the JAX package does it: a
+    batched SVD or eigendecomposition of thousands of tiny matrices is a
+    poor fit for the GPU's dense solvers and would pick other rotations for
+    degenerate triplets (collinear points, tied eigenvalues), which the
+    checkers and the inlier score reject either way.
     """
     mu_s = src.mean(dim=1, keepdim=True)
     mu_d = dst.mean(dim=1, keepdim=True)
-    M = torch.einsum("bki,bkj->bij", src - mu_s, dst - mu_d)
-    xx, xy, xz = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
-    yx, yy, yz = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
-    zx, zy, zz = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
-    N = torch.stack([
-        torch.stack([xx + yy + zz, yz - zy, zx - xz, xy - yx], -1),
-        torch.stack([yz - zy, xx - yy - zz, xy + yx, zx + xz], -1),
-        torch.stack([zx - xz, xy + yx, -xx + yy - zz, yz + zy], -1),
-        torch.stack([xy - yx, zx + xz, yz + zy, -xx - yy + zz], -1),
-    ], dim=1)                                              # [B, 4, 4] symmetric
-    # Shift so the max-quaternion eigenvalue dominates in magnitude.
-    shift = torch.sqrt((M * M).sum(dim=(1, 2)))[:, None, None] * 2.0 + 1e-6
-    Ns = N + shift * torch.eye(4, dtype=src.dtype, device=src.device)
-    v = src.new_full((N.shape[0], 4), 0.5)
-    for _ in range(30):
-        v = torch.einsum("bij,bj->bi", Ns, v)
-        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
-    R = _quat_to_rot(v)
+    R = se3.horn_rotation(torch.einsum("bki,bkj->bij", src - mu_s, dst - mu_d))
     t = mu_d[:, 0, :] - torch.einsum("bij,bj->bi", R, mu_s[:, 0, :])
     return R, t
 
@@ -195,8 +173,9 @@ def information_matrix_from_point_clouds(src_xyz: Tensor, src_mask: Tensor, ref_
                                          nn_ref=None):
     """Open3D GetInformationMatrixFromPointClouds: Sigma = sum over matched
     points of G^T G with G = [-[q]x | I] rows, q the matched reference
-    point.  ``matcher``: "cuda" (kernel K1, its plain twin on CPU tensors)
-    or "bruteforce"; ``nn_ref`` is K1's prepared reference where the caller
+    point.  ``matcher``: "cuda" (kernel K1, its plain twin on CPU tensors),
+    "bruteforce", or "hashgrid" (the JAX package's default; ``ref_grid``
+    then comes from ``hashgrid.build``); ``nn_ref`` is K1's prepared reference where the caller
     has one.  A query with no reference within ``max_dist`` has weight 0 and
     its gathered point is replaced by zeros before it is used: K1 returns
     index 0 for such a lane and the twin the nearest reference at any
@@ -211,8 +190,7 @@ def information_matrix_from_point_clouds(src_xyz: Tensor, src_mask: Tensor, ref_
     elif matcher == "bruteforce":
         idx, d2, found = bruteforce.nn(src, src_mask, ref_grid.points, max_dist)
     else:
-        raise NotImplementedError(
-            f"information matrix matcher {matcher!r} is not ported yet (ROADMAP §1 item 12)")
+        idx, d2, found = hashgrid.query_nn(ref_grid, src, src_mask, max_dist)
     q = torch.where(found[:, None], ref_grid.points[idx], 0.0)
     w = found.to(torch.float32)
     I = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[0], 3, 3)

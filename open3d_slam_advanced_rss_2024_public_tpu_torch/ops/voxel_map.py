@@ -255,3 +255,37 @@ def evict_far(vmap: VoxelMap, center: Tensor, keep_fraction: float = 0.75) -> Vo
     d2 = torch.where(occ, d2, float("inf"))
     keep = _keep_first(torch.argsort(d2, stable=True), C, max(int(C * keep_fraction), 1))
     return _rebuild_keeping(vmap, keep & occ)
+
+
+def carve(vmap: VoxelMap, scan: PointCloud, sensor_origin: Tensor, carve_voxel_size,
+          truncation_distance, max_ray_length, steps: int = 64) -> VoxelMap:
+    """Ray-cast space carving: clear map voxels on the free-space segment
+    of each scan ray (reference helpers.cpp:238-281 getIdxsOfCarvedPoints,
+    Submap.cpp:130-157).  ``steps`` samples along every valid ray between
+    the sensor and (hit distance - truncation), at fractions (i + 0.5) /
+    steps; a voxel mean that falls in a sampled ``carve_voxel_size`` voxel
+    is tombstoned: its key stays (probe windows stay intact) and its sums
+    go to zero, so it accumulates again if observed again."""
+    from .hashgrid import occupancy_lookup
+
+    origin = sensor_origin.to(torch.float32)
+    ray = torch.where(scan.mask[:, None], scan.xyz - origin, 0.0)
+    hit_dist = torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+    direction = ray / torch.clamp(hit_dist, min=1e-9)
+    free_len = torch.clamp(hit_dist - truncation_distance, max=max_ray_length)
+    frac = (torch.arange(steps, dtype=torch.float32, device=ray.device) + 0.5) / steps
+    samples = origin + direction[:, None, :] * (frac[None, :, None] * free_len[:, None, :])
+    sample_ok = scan.mask[:, None] & (free_len > 0).expand(-1, steps)
+    means = vmap.cloud
+    carved = occupancy_lookup(samples.reshape(-1, 3), sample_ok.reshape(-1), means.xyz,
+                              means.mask, carve_voxel_size, table_size=1 << 16)
+    return dataclasses.replace(vmap, acc=torch.where(carved[:, None], 0.0, vmap.acc))
+
+
+def overlap_mask(vmap_grid, other: PointCloud) -> Tensor:
+    """Mask of ``other``'s points that fall in occupied voxels of a hashed
+    map grid (reference helpers.cpp:320-345
+    computeIndicesOfOverlappingPoints)."""
+    from .hashgrid import occupied_voxel_lookup
+
+    return occupied_voxel_lookup(vmap_grid, other.xyz, other.mask)

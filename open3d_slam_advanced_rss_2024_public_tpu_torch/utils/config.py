@@ -204,7 +204,7 @@ class ScanToMapRegistrationParameters:
     # Correspondence engine: auto = the hand-written CUDA NN kernel
     # (ops/cuda_nn.py; its plain twin on CPU tensors); "pallas" is accepted
     # as its alias so parameter files of the JAX package load unchanged;
-    # or force "bruteforce".  "hashgrid" is not ported yet.
+    # "bruteforce"; or "hashgrid", the voxel-hash probe (ops/hashgrid.py).
     matcher: str = "auto"
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.hashgrid import HashGrid
 from ..ops.voxel_map import VoxelMap
 from ..utils.pointcloud import PointCloud
 from .config import SlamParameters, load_parameters
@@ -39,6 +40,24 @@ def cloud_from_arrays(xyz, normals, mask, device="cuda") -> PointCloud:
         xyz=torch.as_tensor(np.array(xyz), dtype=torch.float32, device=device),
         normals=torch.as_tensor(np.array(normals), dtype=torch.float32, device=device),
         mask=torch.as_tensor(np.array(mask), dtype=torch.bool, device=device))
+
+
+def hash_grid_from_arrays(points, normals, perm, start, count, cell,
+                          device="cuda") -> HashGrid:
+    """The fields of a JAX ``HashGrid`` -> the port's (the same CSR layout;
+    the descriptor channel is not ported)."""
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    return HashGrid(points=t(points, torch.float32), normals=t(normals, torch.float32),
+                    perm=t(perm, torch.int32), start=t(start, torch.int32),
+                    count=t(count, torch.int32), cell=t(cell, torch.float32))
+
+
+def hash_grid_from_jax(jgrid, device="cuda") -> HashGrid:
+    """A JAX ``HashGrid`` object -> the port's."""
+    return hash_grid_from_arrays(jgrid.points, jgrid.normals, jgrid.perm, jgrid.start,
+                                 jgrid.count, jgrid.cell, device=device)
 
 
 def submap_from_jax(jsub, device="cuda"):

@@ -137,18 +137,20 @@ def make_cloud(xyz, normals=None, mask=None, capacity: Optional[int] = None,
                device=None) -> PointCloud:
     """Build a PointCloud from host or device arrays, padding to capacity.
     ``device`` defaults to the device of ``xyz`` when it is a tensor, else
-    ``cuda``."""
+    ``cuda``.  Host arrays go up through pinned memory without a stream
+    synchronisation (``device.to_device``)."""
+    from .device import to_device
+
     if device is None:
         device = xyz.device if isinstance(xyz, Tensor) else "cuda"
-    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    xyz = to_device(xyz, device)
     n = xyz.shape[0]
     capacity = n if capacity is None else capacity
     if capacity < n:
         raise ValueError(f"capacity {capacity} < points {n}")
-    normals = (torch.zeros_like(xyz) if normals is None else
-               torch.as_tensor(normals, dtype=torch.float32, device=device))
+    normals = torch.zeros_like(xyz) if normals is None else to_device(normals, device)
     mask = (torch.ones((n,), dtype=torch.bool, device=device) if mask is None
-            else torch.as_tensor(mask, dtype=torch.bool, device=device))
+            else to_device(mask, device, dtype=torch.bool))
     pad = capacity - n
     if pad:
         xyz = torch.cat([xyz, xyz.new_full((pad, 3), SENTINEL)])

@@ -172,6 +172,54 @@ def matrix_to_rpy(R: Tensor) -> Tensor:
     return torch.stack([r, p, y], dim=-1)
 
 
+def rpy_to_matrix(rpy: Tensor) -> Tensor:
+    """Roll-pitch-yaw (XYZ extrinsic = ZYX intrinsic) -> rotation matrix."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr, cp, sp, cy, sy = (torch.cos(r), torch.sin(r), torch.cos(p), torch.sin(p),
+                              torch.cos(y), torch.sin(y))
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+    ], dim=-2)
+
+
+def quat_to_matrix(q: Tensor) -> Tensor:
+    """Unit quaternion [..., 4] (w, x, y, z) -> rotation matrix [..., 3, 3]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
+def horn_rotation(M: Tensor, steps: int = 30) -> Tensor:
+    """The rotation R maximizing trace(R M^T) for a cross-covariance
+    M[..., i, j] = sum_k src_k,i dst_k,j (src -> dst), by Horn's quaternion
+    method: the dominant eigenvector of the 4x4 profile matrix, found by
+    ``steps`` power steps after a shift that makes the largest eigenvalue
+    the largest in magnitude.  It is always a proper rotation, as the SVD
+    form with its reflection guard (Umeyama) gives, and it needs no batched
+    SVD, whose CUDA path reads its ``info`` back to the host."""
+    xx, xy, xz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    yx, yy, yz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    zx, zy, zz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    N = torch.stack([
+        torch.stack([xx + yy + zz, yz - zy, zx - xz, xy - yx], -1),
+        torch.stack([yz - zy, xx - yy - zz, xy + yx, zx + xz], -1),
+        torch.stack([zx - xz, xy + yx, -xx + yy - zz, yz + zy], -1),
+        torch.stack([xy - yx, zx + xz, yz + zy, -xx - yy + zz], -1),
+    ], dim=-2)
+    shift = torch.sqrt((M * M).sum(dim=(-2, -1)))[..., None, None] * 2.0 + 1e-6
+    Ns = N + shift * torch.eye(4, dtype=M.dtype, device=M.device)
+    v = M.new_full(M.shape[:-2] + (4,), 0.5)
+    for _ in range(steps):
+        v = (Ns @ v[..., None])[..., 0]
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
+    return quat_to_matrix(v)
+
+
 def _cofactor_3x3(R: Tensor) -> Tensor:
     """Cofactor matrix: cof(R) = det(R) R^{-T}, closed form."""
     c0 = torch.linalg.cross(R[..., 1, :], R[..., 2, :])
