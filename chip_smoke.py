@@ -23,13 +23,15 @@ itself on the CPU (a closed 16-scan loop with every stage on, and the
 loop-closure stages one by one from a common state at full width), and one
 pose-graph solve of the loop on its own (trips, host time and device
 operations a trip).  Then the command line at the package defaults
-(``cli.main`` in this process) on a 101-scan lap of 120000-point scans that
-the script writes under build/ in KITTI odometry's layout: GICP odometry,
-the Mapper, submaps, loop closure and the pose graph, held to an ATE below
-0.2 m and the odometry's; K1 and K2 at the defaults' shapes, one GICP
-registration and one carve on the card against the CPU, the hashed grid
-against K1, both overflow policies of the scan path, and a localization
-run from a Lua parameter file on the saved map.  Every phase prints one
+(``cli.main`` in this process) on a 101-scan lap that the script writes under
+build/ in KITTI odometry's layout, at a reduced width (16384-point scans,
+whose voxels fit the defaults' lanes): GICP odometry, the Mapper, submaps,
+loop closure and the pose graph, held to an ATE below 0.2 m and the
+odometry's; K1 and K2 at the defaults' shapes, one GICP registration and one
+carve on the card against the CPU, the hashed grid against K1, the command
+line on 20 scans at HDL-64E width (120000 points, read but held to no
+accuracy bar), and a localization run from a Lua parameter file on the
+saved map, thinned to the map initializer's 262144 points.  Every phase prints one
 line; any failure ends the run
 with a non-zero exit.  The second-to-last line is a JSON object
 with each kernel's launches on the main path, error against its twin, times and
@@ -1223,21 +1225,31 @@ def pose_graph_solve(torch, dev, node_poses, graph, solve_kwargs):
 # -- the command-line path at the package defaults ------------------------------
 
 # One lap of a 12 m circle in 100 scans, 0.754 m apart (10 Hz at 27 km/h), the
-# sensor 1.73 m above the ground (KITTI's HDL-64E), and every scan holding
-# KITTI_POINTS points within KITTI_RANGE.  The odometry rejects a scan-to-scan
-# step longer than 0.8 m as a jump (the reference's constant, odometry.py),
-# so KITTI's 1 m steps at 36 km/h would all be rejected.
+# sensor 1.73 m above the ground (KITTI's HDL-64E).  The odometry rejects a
+# scan-to-scan step longer than 0.8 m as a jump (the reference's constant,
+# odometry.py), so KITTI's 1 m steps at 36 km/h would all be rejected.
+# The lap is written at a reduced width, KITTI_POINTS points a scan within
+# KITTI_RANGE, so that every scan's 0.1 m voxels fit the defaults' 16384
+# lanes.  An HDL-64E scan holds ~120000 points (~96000 voxels); where the
+# voxels overflow, the scan path keeps the first 16384 in Morton order, as
+# the JAX package does: one corner of the scan.  The lap's first
+# KITTI_FULL_SCANS scans are also written at that width (KITTI_FULL_POINTS),
+# and ``cli kitti full width`` reports what the defaults make of them.
 KITTI_LAP = 100
 KITTI_RADIUS = 12.0
-KITTI_POINTS = 120000
+KITTI_POINTS = 16384
+KITTI_FULL_POINTS = 120000
+KITTI_FULL_SCANS = 20
 KITTI_RANGE = 30.0
 KITTI_DIR = OUT / "kitti_synthetic"
+KITTI_FULL_DIR = OUT / "kitti_synthetic_full"
 # The velodyne -> camera-0 calibration of KITTI odometry sequence 00 (calib.txt "Tr").
 KITTI_TR = np.array([[4.276802e-04, -9.999672e-01, -8.084491e-03, -1.198459e-02],
                      [-7.210626e-03, 8.081198e-03, -9.999413e-01, -5.403984e-02],
                      [9.999738e-01, 4.859485e-04, -7.206933e-03, -2.921968e-01],
                      [0.0, 0.0, 0.0, 1.0]])
 LOCALIZATION_SCANS = 10
+LOCALIZATION_VOXEL = 0.2
 
 
 def kitti_world(dev):
@@ -1272,14 +1284,42 @@ def kitti_world(dev):
                       normals=np.concatenate([n for _, n in parts]), device=dev)
 
 
-def write_kitti_sequence(torch, dev):
-    """A directory in KITTI odometry's layout under build/: the lap's scans
+def write_kitti_dir(root, world, gt, n_points: int, gen):
+    """A directory in KITTI odometry's layout: the scans at the poses ``gt``
     as ``sequences/00/velodyne/%06d.bin`` (float32 x, y, z, reflectance),
     ``sequences/00/calib.txt`` with the ``Tr:`` line and ``poses/00.txt``
-    with the ground truth in the camera frame.  The lap closes on its first
-    pose.  Returns the ground truth in the velodyne frame."""
+    with the ground truth in the camera frame.  Returns the points a scan."""
     import shutil
 
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+
+    shutil.rmtree(root, ignore_errors=True)
+    velo = root / "sequences" / "00" / "velodyne"
+    velo.mkdir(parents=True)
+    counts = []
+    for i, T in enumerate(gt):
+        scan = synthetic.render_scan(world, T, gen, max_range=KITTI_RANGE,
+                                     n_points=n_points, noise=0.01)
+        xyz = scan.xyz[scan.mask].cpu().numpy()
+        rec = np.zeros((len(xyz), 4), np.float32)
+        rec[:, :3] = xyz
+        rec[:, 3] = np.linalg.norm(xyz, axis=1) / KITTI_RANGE  # a stand-in reflectance
+        rec.tofile(velo / f"{i:06d}.bin")
+        counts.append(len(xyz))
+    (root / "sequences" / "00" / "calib.txt").write_text(
+        "Tr: " + " ".join(f"{v:.6e}" for v in KITTI_TR[:3].reshape(-1)) + "\n")
+    (root / "poses").mkdir()
+    cam = [T.astype(np.float64) @ np.linalg.inv(KITTI_TR) for T in gt]
+    (root / "poses" / "00.txt").write_text(
+        "\n".join(" ".join(f"{v:.9e}" for v in T[:3].reshape(-1)) for T in cam) + "\n")
+    return counts
+
+
+def write_kitti_sequence(torch, dev):
+    """Phase ``kitti sequence``: the lap under build/ in KITTI odometry's
+    layout at the reduced width (KITTI_DIR), and its first KITTI_FULL_SCANS
+    scans at HDL-64E width (KITTI_FULL_DIR).  The lap closes on its first
+    pose.  Returns the ground truth in the velodyne frame."""
     from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
 
     t0 = time.perf_counter()
@@ -1287,29 +1327,14 @@ def write_kitti_sequence(torch, dev):
     gt = synthetic.loop_trajectory(KITTI_LAP, radius=KITTI_RADIUS, center=(0.0, 0.0), z=1.73)
     gt.append(gt[0])
     gen = torch.Generator(device=dev).manual_seed(41)
-    shutil.rmtree(KITTI_DIR, ignore_errors=True)
-    velo = KITTI_DIR / "sequences" / "00" / "velodyne"
-    velo.mkdir(parents=True)
-    counts = []
-    for i, T in enumerate(gt):
-        scan = synthetic.render_scan(world, T, gen, max_range=KITTI_RANGE,
-                                     n_points=KITTI_POINTS, noise=0.01)
-        xyz = scan.xyz[scan.mask].cpu().numpy()
-        rec = np.zeros((len(xyz), 4), np.float32)
-        rec[:, :3] = xyz
-        rec[:, 3] = np.linalg.norm(xyz, axis=1) / KITTI_RANGE  # a stand-in reflectance
-        rec.tofile(velo / f"{i:06d}.bin")
-        counts.append(len(xyz))
-    (KITTI_DIR / "sequences" / "00" / "calib.txt").write_text(
-        "Tr: " + " ".join(f"{v:.6e}" for v in KITTI_TR[:3].reshape(-1)) + "\n")
-    (KITTI_DIR / "poses").mkdir()
-    cam = [T.astype(np.float64) @ np.linalg.inv(KITTI_TR) for T in gt]
-    (KITTI_DIR / "poses" / "00.txt").write_text(
-        "\n".join(" ".join(f"{v:.9e}" for v in T[:3].reshape(-1)) for T in cam) + "\n")
+    counts = write_kitti_dir(KITTI_DIR, world, gt, KITTI_POINTS, gen)
+    full = write_kitti_dir(KITTI_FULL_DIR, world, gt[:KITTI_FULL_SCANS], KITTI_FULL_POINTS, gen)
     phase("kitti sequence", scans=len(gt), world_points=int(world.mask.sum()),
-          points_per_scan=span(counts), seconds=f"{time.perf_counter() - t0:.1f}")
-    if min(counts) < KITTI_POINTS:
-        fail(f"kitti sequence: a scan holds only {min(counts)} points within {KITTI_RANGE} m")
+          points_per_scan=span(counts), full_width_scans=len(full),
+          full_width_points_per_scan=span(full), seconds=f"{time.perf_counter() - t0:.1f}")
+    if min(counts) < KITTI_POINTS or min(full) < KITTI_FULL_POINTS:
+        fail(f"kitti sequence: a scan holds only {min(counts)} and {min(full)} points within "
+             f"{KITTI_RANGE} m")
     return gt
 
 
@@ -1382,7 +1407,7 @@ def run_cli(argv):
 
 def cli_kitti(torch, dev, gt):
     """Phase ``cli kitti``, this slice's path: the command-line entry point
-    on the KITTI-layout directory with no parameter file, so that every
+    on the KITTI-layout lap (reduced width) with no parameter file, so that every
     parameter is the package default (scan-to-scan GICP odometry, the Mapper
     with K1 and K2, submaps, features, loop closure, the pose graph).  The
     launch counts are set to 0 just before the run and read just after.
@@ -1463,13 +1488,14 @@ def cli_kitti(torch, dev, gt):
 def cli_default_shapes(torch, dev, slam, counts, gt):
     """K1 and K2 at the shapes of the package defaults against their plain
     versions (``K1 nn odometry defaults``: two consecutive preprocessed
-    KITTI-width scans, 16384 x 16384 at 1.0 m; ``K1 nn mapper defaults``: a
+    scans of the lap, 16384 x 16384 at 1.0 m; ``K1 nn mapper defaults``: a
     scan against the final submap's default 65536-point patch at 1.0 m;
     ``K2 moments odometry``: one scan, [1, 16384] at 0.5 m); one default GICP
     registration on the card and on the CPU (``gicp register``); the hashed
     grid against K1 on the mapper's patch and a short Mapper run on it
-    (``hashgrid matcher``); one carve of the full-width submap, card against
-    CPU (``carve``).  Returns the new rows of the kernels line."""
+    (``hashgrid matcher``); one carve of the full-width submap with a
+    full-width scan, card against CPU (``carve``).  Returns the new rows of
+    the kernels line."""
     import dataclasses
 
     from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import kitti
@@ -1516,48 +1542,71 @@ def cli_default_shapes(torch, dev, slam, counts, gt):
 
     # -- the hashed grid against K1 on that patch -----------------------------
     # ``query_nn`` is exact where none of the 27 probed buckets holds more
-    # than ``max_per_bucket`` points; elsewhere it may answer a farther
-    # point, never a closer one.
+    # than ``max_per_bucket`` points.  With the budget raised to the fullest
+    # probed bucket it must give K1's answer on every query; at the default
+    # budget it must give on the card what it gives on the CPU.
     max_dist, budget = pcfg.icp.max_correspondence_dist, pcfg.icp.max_per_bucket
     q_valid = q[:, 0].abs() < 1e7
     ki, kd2 = cuda_nn.nn(q, r, max_dist)
-    hi, hd2, hfound = hashgrid.query_nn(hashed, q, q_valid, max_dist, max_per_bucket=budget)
     kfound = q_valid & (kd2 <= max_dist ** 2)
-    both = kfound & hfound
     probed = hashgrid.hash_key(hashgrid.voxel_key(q, hashed.cell)[:, None, :]
                                + hashgrid._offsets27(dev)[None], hashed.table_size)
-    exact = both & (hashed.count[probed] <= budget).all(-1)
+    fullest = int(hashed.count[probed][q_valid].max())
+    hi, hd2, hfound = hashgrid.query_nn(hashed, q, q_valid, max_dist, max_per_bucket=fullest)
+    both = kfound & hfound
     same_point = (r[ki] == hashed.points[hi]).all(-1)
     # K1 forms d2 from coordinates de-meaned at the reference's centroid,
     # the hashed grid from the coordinates as they are: 30 m coordinates
-    # round at 2e-6 m, which moves d2 <= 1 m^2 by up to ~1e-5 m^2.
+    # round at 2e-6 m, which moves d2 <= 1 m^2 by up to ~1e-5 m^2.  Another
+    # point than K1's is a tie within that rounding.
     tol = 2e-5
-    d2_err = float((kd2 - hd2)[exact].abs().max()) if bool(exact.any()) else 0.0
-    closer = int((both & (hd2 < kd2 - tol)).sum())
+    d2_err = float((kd2 - hd2)[both].abs().max()) if bool(both.any()) else 0.0
     agree = float((kfound == hfound)[q_valid].float().mean())
+    # The default budget, card against CPU, every query.
+    bi, bd2, bfound = hashgrid.query_nn(hashed, q, q_valid, max_dist, max_per_bucket=budget)
+    host_grid = dataclasses.replace(hashed, **{f.name: getattr(hashed, f.name).cpu()
+                                               for f in dataclasses.fields(hashed)
+                                               if getattr(hashed, f.name) is not None})
+    ci, cd2, cfound = hashgrid.query_nn(host_grid, q.cpu(), q_valid.cpu(), max_dist,
+                                        max_per_bucket=budget)
+    bi, bd2, bfound = bi.cpu(), bd2.cpu(), bfound.cpu()
+    budget_index_differ = int((bfound & (bi != ci)).sum())
+    budget_d2_err = float((bd2 - cd2)[bfound | cfound].abs().max())
+    budget_found_differ = int((bfound != cfound).sum())
+    exact = (hashed.count[probed] <= budget).all(-1).cpu() & bfound
+    budget_farther = float((bfound & ~exact & (bd2 > hd2.cpu() + tol)).float().sum()
+                           / max(int(bfound.sum()), 1))
     ref = cuda_nn.prepare_ref(r)
     k1_ms = cuda_ms(lambda: cuda_nn.nn(q, ref, max_dist), reps=50)
     hash_ms = cuda_ms(lambda: hashgrid.query_nn(hashed, q, q_valid, max_dist,
                                                 max_per_bucket=budget), reps=20)
+    full_ms = cuda_ms(lambda: hashgrid.query_nn(hashed, q, q_valid, max_dist,
+                                                max_per_bucket=fullest), reps=5)
     build_ms = cuda_ms(lambda: scan_processing.crop_submap_and_index(submap.cloud, pose[:3, 3],
                                                                      **crop), reps=10)
     mapper_ms, mapper_err = hashgrid_mapper_run(torch, dev, slam, gt)
     phase("hashgrid matcher", shape=f"{q.shape[0]}x{r.shape[0]}",
           valid=f"{int(q_valid.sum())}x{int((r[:, 0].abs() < 1e7).sum())}",
-          found_k1=int(kfound.sum()), found_hashgrid=int(hfound.sum()),
-          found_agree_share=f"{agree:.6f}", within_budget=int(exact.sum()),
-          same_point_within_budget=f"{float(same_point[exact].float().mean()):.6f}",
-          same_point_all=f"{float(same_point[both].float().mean()):.6f}",
-          max_abs_err_d2_within_budget=f"{d2_err:.3e}", closer_than_k1=closer,
+          fullest_probed_bucket=fullest, found_k1=int(kfound.sum()),
+          found_hashgrid=int(hfound.sum()), found_agree_share=f"{agree:.6f}",
+          same_point_share=f"{float(same_point[both].float().mean()):.6f}",
+          max_abs_err_d2=f"{d2_err:.3e}", budget=budget,
+          budget_within=int(exact.sum()), budget_farther_share=f"{budget_farther:.6f}",
+          budget_card_vs_cpu_index_differ=budget_index_differ,
+          budget_card_vs_cpu_found_differ=budget_found_differ,
+          budget_card_vs_cpu_d2_err=f"{budget_d2_err:.3e}",
           k1_wrapper_ms=f"{k1_ms:.4f}", query_nn_ms=f"{hash_ms:.4f}",
-          crop_and_build_ms=f"{build_ms:.4f}", mapper_ms_per_scan=f"{mapper_ms:.3f}",
-          mapper_max_pose_err_m=f"{mapper_err:.4f}")
-    if bool((exact & ~same_point & ((kd2 - hd2).abs() > tol)).any()) or d2_err > tol:
-        fail(f"hashgrid matcher: within the bucket budget, {int((exact & ~same_point).sum())} "
+          query_nn_full_budget_ms=f"{full_ms:.4f}", crop_and_build_ms=f"{build_ms:.4f}",
+          mapper_ms_per_scan=f"{mapper_ms:.3f}", mapper_max_pose_err_m=f"{mapper_err:.4f}")
+    if bool((both & ~same_point & ((kd2 - hd2).abs() > tol)).any()) or d2_err > tol:
+        fail(f"hashgrid matcher: with a budget of {fullest}, {int((both & ~same_point).sum())} "
              f"queries found another point than K1's, d2 apart by up to {d2_err:.3e}")
-    if closer or not agree >= 0.999:
-        fail(f"hashgrid matcher: {closer} answers closer than the exact NN; found sets agree "
-             f"on {agree:.6f} of the valid queries")
+    if not agree >= 0.999:
+        fail(f"hashgrid matcher: found sets agree on {agree:.6f} of the valid queries")
+    if budget_index_differ or budget_found_differ or budget_d2_err > 1e-6:
+        fail(f"hashgrid matcher: at a budget of {budget}, card and CPU differ on "
+             f"{budget_index_differ} indices and {budget_found_differ} found flags, d2 by up "
+             f"to {budget_d2_err:.3e}")
     if not mapper_err < 0.1:
         fail(f"hashgrid matcher: the Mapper on the hashed grid ends {mapper_err:.3f} m off")
 
@@ -1565,11 +1614,11 @@ def cli_default_shapes(torch, dev, slam, counts, gt):
     gicp_register(torch, cfg, prev, cur)
 
     # -- one carve of the full-width submap with a KITTI-width scan ------------
+    # The lap closes on its first pose, where the full-width scan 0 was taken.
     mb = slam.params.mapper.map_builder
     sc = mb.space_carving
-    i = len(gt) - 1
-    scan_map = kitti.read_velodyne_bin(str(KITTI_DIR / "sequences" / "00" / "velodyne"
-                                           / f"{i:06d}.bin"), device=dev).transform(pose)
+    scan_map = kitti.read_velodyne_bin(str(KITTI_FULL_DIR / "sequences" / "00" / "velodyne"
+                                           / "000000.bin"), device=dev).transform(pose)
     kw = dict(carve_voxel_size=sc.voxel_size, truncation_distance=sc.truncation_distance,
               max_ray_length=sc.max_raytracing_length)
     host = dataclasses.replace(submap, **{f.name: getattr(submap, f.name).cpu()
@@ -1596,42 +1645,41 @@ def cli_default_shapes(torch, dev, slam, counts, gt):
     return rows
 
 
-def scan_overflow_policy(torch, dev, gt, n: int = 20):
-    """Phase ``scan overflow policy``: the odometry at the package defaults
-    over the lap's first ``n`` scans, once with each policy of the scan
-    path's voxel downsample for a scan with more voxels than lanes: the JAX
-    package's (the first 16384 in Morton order) and the port's (an even
-    spread).  Rejected jumps and end error against the ground truth."""
+def cli_kitti_full_width(torch, dev, gt):
+    """Phase ``cli kitti full width``: the command line at the package
+    defaults on the lap's first KITTI_FULL_SCANS scans at HDL-64E width,
+    where every scan holds more 0.1 m voxels than the defaults' 16384 lanes
+    and the scan path keeps the first of them in Morton order, as the JAX
+    package does.  A reading of that limit (``PERF.md`` §7), held to no
+    accuracy bar: the run must write a finite pose for every scan."""
     from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import kitti
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.odometry import LidarOdometry
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
 
-    scans = [f.scan for f in kitti.kitti_sequence(str(KITTI_DIR), max_frames=n, device=dev)]
-    params = load_parameters(None)
-    sp = params.odometry.scan_processing
-    voxels = int(filters.voxel_downsample(scans[0], sp.voxel_size, scans[0].capacity).mask.sum())
-    truth = np.linalg.inv(gt[0]) @ gt[n - 1]
-    real = filters.voxel_downsample
-    result = {}
+    sp = load_parameters(None).odometry.scan_processing
+    first = kitti.read_velodyne_bin(str(KITTI_FULL_DIR / "sequences" / "00" / "velodyne"
+                                        / "000000.bin"), device=dev)
+    voxels = int(filters.voxel_downsample(first, sp.voxel_size, first.capacity).mask.sum())
+    counting = _Counting()
+    t0 = time.perf_counter()
     try:
-        for policy in ("drop", "spread"):
-            filters.voxel_downsample = (
-                lambda *args, policy=policy, **kwargs: real(*args, **{**kwargs,
-                                                                     "overflow": policy}))
-            odo = LidarOdometry(params, device=dev)
-            for i, scan in enumerate(scans):
-                odo.add_range_scan(scan, 0.1 * i)
-            end = float(np.linalg.norm(odo.odom_to_range_sensor[:3, 3] - truth[:3, 3]))
-            result[policy] = (odo.rejected_jumps, odo.low_fitness, end)
+        rc, lines, _ = run_cli(["--dataset", "kitti", "--kitti-root", str(KITTI_FULL_DIR),
+                                "--output", str(OUT / "cli_kitti_full"), "--eval-ate"])
+        torch.cuda.synchronize()
     finally:
-        filters.voxel_downsample = real
-    phase("scan overflow policy", scans=n, voxels_per_scan=voxels, lanes=sp.point_capacity,
-          **{f"{p}_{k}": v for p, (j, lf, e) in result.items()
-             for k, v in (("rejected_jumps", j), ("low_fitness", lf),
-                          ("end_err_m", f"{e:.4f}"))})
-    if result["spread"][0] or not result["spread"][2] < 0.1:
-        fail(f"scan overflow policy: the odometry on the spread voxels {result['spread']}")
+        counting.restore()
+    wall = time.perf_counter() - t0
+    n, slam = KITTI_FULL_SCANS, counting.slams[0]
+    est, odom = np.stack(slam.trajectory_poses), np.stack(counting.odom_poses)
+    result = json.loads(lines[-1]) if lines else {}
+    phase("cli kitti full width", scans=n, voxels_first_scan=voxels, lanes=sp.point_capacity,
+          ms_per_scan=f"{wall / n * 1e3:.3f}", ate_rmse_m=result.get("ate_rmse_m"),
+          ate_odometry_m=f"{io.ate_rmse(odom, np.stack(gt[:len(odom)])):.4f}",
+          rejected_jumps=slam.odometry.rejected_jumps, low_fitness=slam.odometry.low_fitness)
+    if rc != 0 or result.get("frames") != n or len(est) != n or not np.isfinite(est).all():
+        fail(f"cli kitti full width: exit code {rc}, {len(est)} poses for {n} scans, "
+             f"result line {lines[-1:]}")
 
 
 def gicp_register(torch, cfg, prev, cur):
@@ -1757,14 +1805,17 @@ def cli_localization(torch, dev, gt):
     schema (an ``include`` of a base file, dotted assignments, carving on,
     an ``init_pose`` block) and the map of ``cli kitti`` as the prior map;
     the command line runs the first LOCALIZATION_SCANS scans of the lap.
-    The prior map is thinned first: the map initializer estimates kNN
-    normals over it by brute force, at a cost that grows with the square
-    of its points (map.pcd holds the voxel means of every submap).
-    Localization merges no scan into the prior map unless asked to, and
-    carving runs where a scan is merged, so the file asks for merging after
-    0.3 s."""
+    map.pcd holds the voxel means of every submap, more points than the
+    command line takes as a prior map (``cli.MAX_INITIAL_MAP_POINTS``, the
+    JAX package's bound; the map initializer's brute-force kNN normals grow
+    with the square of the map): the phase checks that the command line
+    refuses it with a message, and thins it to one point per
+    LOCALIZATION_VOXEL voxel.  Localization merges no scan into the prior
+    map unless asked to, and carving runs where a scan is merged, so the
+    file asks for merging after 0.3 s."""
     import dataclasses
 
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import cli
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters, voxel_map
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.lua_config import (
@@ -1772,11 +1823,23 @@ def cli_localization(torch, dev, gt):
 
     d = OUT / "cli_localization"
     d.mkdir(exist_ok=True)
-    # The prior map: cli kitti's map.pcd (the voxel means of all its
-    # submaps, overlaps included) thinned to one point per 0.2 m voxel.
-    saved = io.load_pcd(str(OUT / "cli_kitti" / "map.pcd"), device=dev)
-    prior = filters.voxel_downsample(saved, 0.2, saved.capacity, order="lex")
-    io.save_pcd(str(d / "prior.pcd"), prior)
+    saved_path = str(OUT / "cli_kitti" / "map.pcd")
+    saved = io.load_pcd(saved_path, device=dev)
+    refused = None
+    if saved.capacity > cli.MAX_INITIAL_MAP_POINTS:
+        try:
+            run_cli(["--dataset", "kitti", "--kitti-root", str(KITTI_DIR), "--max-frames", "1",
+                     "--initial-map", saved_path, "--output", str(d / "refused")])
+        except ValueError as e:
+            refused = str(e)
+        if not refused or str(cli.MAX_INITIAL_MAP_POINTS) not in refused:
+            fail(f"cli localization: map.pcd's {saved.capacity} points were not refused "
+                 f"({refused})")
+    prior = filters.voxel_downsample(saved, LOCALIZATION_VOXEL, saved.capacity, order="lex")
+    n_prior = int(prior.mask.sum())
+    if n_prior > cli.MAX_INITIAL_MAP_POINTS:
+        fail(f"cli localization: the thinned map still holds {n_prior} points")
+    io.save_pcd(str(d / "prior.pcd"), prior)  # the valid points only
     (d / "base.lua").write_text(LOCALIZATION_BASE_LUA)
     (d / "localization.lua").write_text(LOCALIZATION_LUA)
     params, warns = load_lua_parameters(str(d / "localization.lua"))
@@ -1822,7 +1885,8 @@ def cli_localization(torch, dev, gt):
     end_err = float(np.linalg.norm(end[:3, 3] - truth[:3, 3]))
     loader_lines = [line for line in err.splitlines() if line.startswith("[params]")]
     phase("cli localization", scans=len(slam.trajectory_poses), seconds=f"{wall:.1f}",
-          prior_map_points=f"{int(prior.mask.sum())}/{int(saved.mask.sum())}",
+          map_pcd_points=saved.capacity, map_pcd_refused=refused is not None,
+          prior_map_points=n_prior, prior_voxel_m=LOCALIZATION_VOXEL,
           loader_warnings=len(warns) + len(loader_lines), wrong_values=len(wrong),
           carving_enabled=slam.params.mapper.map_builder.is_carving_enabled,
           carves=carves["n"], submaps=len(slam.mapper.submaps.submaps),
@@ -1964,7 +2028,7 @@ def main() -> None:
     kitti_gt = write_kitti_sequence(torch, dev)
     cli_slam, cli_launches, cli_counts = cli_kitti(torch, dev, kitti_gt)
     new_rows += cli_default_shapes(torch, dev, cli_slam, cli_counts, kitti_gt)
-    scan_overflow_policy(torch, dev, kitti_gt)
+    cli_kitti_full_width(torch, dev, kitti_gt)
     cli_localization(torch, dev, kitti_gt)
 
     for row in kernels:

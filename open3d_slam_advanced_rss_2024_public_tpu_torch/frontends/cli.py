@@ -19,6 +19,9 @@ import sys
 
 import numpy as np
 
+# The most points ``--initial-map`` may hold (the JAX package's map lanes).
+MAX_INITIAL_MAP_POINTS = 262144
+
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="LiDAR SLAM on PyTorch and CUDA")
@@ -94,11 +97,18 @@ def main(argv=None) -> int:
     if args.initial_map:
         from ..models.map_initializer import SlamMapInitializer
 
-        # At the file's own size: the JAX package pads the map to 262144
-        # lanes for a fixed compiled shape, which torch does not need, and
-        # the brute-force kNN normals of the map scale with the square.
+        # At the file's own size, which torch allows, up to the JAX
+        # package's bound: it pads the map to MAX_INITIAL_MAP_POINTS lanes
+        # and raises beyond.  The map's brute-force kNN normals grow with the
+        # square of its points.
+        prior = io_utils.load_pcd(args.initial_map, device=device)
+        if prior.capacity > MAX_INITIAL_MAP_POINTS:
+            raise ValueError(
+                f"capacity {MAX_INITIAL_MAP_POINTS} < points {prior.capacity}: the prior map "
+                f"{args.initial_map} holds more points than the map initializer takes; "
+                f"thin it first (a voxel filter)")
         SlamMapInitializer(runner.slam, params.mapper.map_initializer).initialize(
-            map_cloud=io_utils.load_pcd(args.initial_map, device=device))
+            map_cloud=prior)
 
     gt = None
     if args.dataset == "synthetic":

@@ -35,13 +35,7 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
                     normal_knn: int = 10, seed: int = 0,
                     normal_engine: str = "auto") -> PointCloud:
     """Wide crop -> voxel downsample (Morton order) -> normals.
-    ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45).
-
-    Where the scan has more voxels than ``capacity`` (a 120000-point
-    scan at 0.1 m holds ~100000), an even spread of them is kept; the JAX
-    package keeps the first ``capacity`` in Morton order, one corner of
-    the scan, on which the package defaults lose track of a KITTI-width
-    sequence (``PERF.md``)."""
+    ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45)."""
     if downsampling_ratio < 1.0:
         raise NotImplementedError(
             "random downsampling is not ported yet (ROADMAP §1, slice 3: filters)")
@@ -49,8 +43,7 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
     scan = filters.remove_non_finite(scan)
     wide = croppers.min_max_radius_cropper(wide_min_radius, wide_max_radius)
     scan = scan.with_mask(wide.contains(scan.xyz))
-    out = filters.voxel_downsample(scan, voxel_size, capacity, order="morton",
-                                   overflow="spread")
+    out = filters.voxel_downsample(scan, voxel_size, capacity, order="morton")
     if estimate_scan_normals and engine == "moments":
         out = normals.estimate_normals_radius(out, radius=normal_radius)
     elif estimate_scan_normals:

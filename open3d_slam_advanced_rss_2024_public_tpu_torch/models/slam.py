@@ -194,9 +194,11 @@ class SlamWrapper:
             if not sc.finished_queue:
                 return
             finished = [idx for idx, _ in sc.finished_queue]
+            # Recorded before the pass: it empties the queue as it goes, and
+            # a caller that waits for an empty queue reads this list next.
+            self._feature_compute_threads.append(threading.current_thread().name)
             with _STATS.time("slam/features"):
                 sc.compute_features_for_finished()
-            self._feature_compute_threads.append(threading.current_thread().name)
             mp = self.params.mapper
             with _STATS.time("slam/odom_constraints"):
                 odo = compute_odometry_constraints(

@@ -30,7 +30,7 @@ def _segment_sum(values: Tensor, seg: Tensor, n: int) -> Tensor:
 
 
 def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
-                     order: str = "morton", overflow: str = "drop") -> PointCloud:
+                     order: str = "morton") -> PointCloud:
     """Voxel-grid down-sampling with per-voxel averaging of position+normal.
 
     ``order="lex"`` (what the submap features ask for): exact
@@ -45,18 +45,9 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
     coarse-major.  The JAX package takes that branch with ``lax.cond``; the
     port computes both orders and selects per batch row on the device, so
     no host branch (and no synchronisation) is needed.
-
-    Where more voxels are occupied than ``capacity``, ``overflow="drop"``
-    keeps the first ``capacity`` in output order, as the JAX package does;
-    ``"spread"`` keeps ``capacity`` of them evenly spread over that order
-    (voxel floor(i * n / capacity), i < capacity, of the n occupied), so
-    that an overfull scan keeps its extent instead of one corner.  Both
-    give the same cloud where the voxels fit.
     """
     if order not in ("lex", "morton"):
         raise ValueError(f"unknown voxel order: {order!r}")
-    if overflow not in ("drop", "spread"):
-        raise ValueError(f"unknown overflow policy: {overflow!r}")
     if cloud.attrs is not None:
         raise NotImplementedError(
             "descriptor channels are not ported yet (ROADMAP §1, slice 3)")
@@ -73,7 +64,7 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
             o = torch.argsort(torch.gather(vkey[..., axis], -1, order_idx), dim=-1,
                               stable=True)
             order_idx = torch.gather(order_idx, -1, o)
-        return _average_sorted(cloud, vkey, order_idx, capacity, batched, overflow)
+        return _average_sorted(cloud, vkey, order_idx, capacity, batched)
     lo_corner = torch.where(mask[..., None], vkey, big).amin(dim=-2, keepdim=True)
     k = torch.where(mask[..., None], vkey - lo_corner, 0)
     k_lo, k_hi = k & 1023, torch.clamp(k >> 10, 0, 1023)
@@ -84,14 +75,13 @@ def voxel_downsample(cloud: PointCloud, voxel_size, capacity: int,
                                             dim=-1, stable=True))
     span_ok = torch.where(mask[..., None], k, 0).amax(dim=(-2, -1)) < 1024
     order_idx = torch.where(span_ok[:, None], o1, o2)
-    return _average_sorted(cloud, vkey, order_idx, capacity, batched, overflow)
+    return _average_sorted(cloud, vkey, order_idx, capacity, batched)
 
 
 def _average_sorted(cloud: PointCloud, vkey: Tensor, order_idx: Tensor, capacity: int,
-                    batched: bool, overflow: str) -> PointCloud:
+                    batched: bool) -> PointCloud:
     """Per-voxel means of a [B, N] cloud whose lanes ``order_idx`` sorts so
-    that equal voxel keys are adjacent; reduced to ``capacity`` lanes by the
-    ``overflow`` policy."""
+    that equal voxel keys are adjacent; compacted to ``capacity``."""
     n = cloud.capacity
     big = 2 ** 30
     mask = cloud.mask
@@ -114,13 +104,5 @@ def _average_sorted(cloud: PointCloud, vkey: Tensor, order_idx: Tensor, capacity
     out = PointCloud(xyz=torch.where(seg_valid[..., None], mean_xyz, SENTINEL),
                      normals=torch.where(seg_valid[..., None], mean_nrm, 0.0),
                      mask=seg_valid)
-    if overflow == "spread" and capacity < n:
-        # The voxels are the first lanes, in order: pick evenly among them.
-        n_vox = seg_valid.sum(-1, keepdim=True)
-        i = torch.arange(capacity, device=mask.device)
-        sel = torch.where(n_vox > capacity, i * n_vox // capacity, i)
-        out = PointCloud(xyz=gather_rows(out.xyz, sel), normals=gather_rows(out.normals, sel),
-                         mask=gather_lanes(out.mask, sel))
-    else:
-        out = compact(out, capacity)
+    out = compact(out, capacity)
     return out if batched else out.map(lambda t: t[0])

@@ -167,30 +167,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
                       "--output", str(tmp_path / "o")])
 
 
-def test_an_overfull_scan_keeps_its_extent():
-    # A scan with more 0.1 m voxels than the scan path's capacity keeps an
-    # even spread of them in Morton order, not the first ``capacity`` (one
-    # corner); where the voxels fit, both policies give the JAX package's
-    # cloud.
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters
-
-    rng = np.random.default_rng(5)
-    xyz = rng.uniform(-20.0, 20.0, size=(20000, 3)).astype(np.float32)
-    xyz[:, 2] *= 0.1
-    cloud = io.make_cloud(xyz, device="cpu")
-    out = scan_processing.preprocess_scan(cloud, 0.5, 30.0, 0.1, 1.0, 2048,
-                                          estimate_scan_normals=False)
-    drop = filters.voxel_downsample(cloud, 0.1, 2048, overflow="drop")
-    assert int(out.mask.sum()) == int(drop.mask.sum()) == 2048
-    span = lambda c: float((c.xyz[c.mask].amax(0) - c.xyz[c.mask].amin(0))[:2].min())
-    assert span(out) > 35.0 > 25.0 > span(drop)
-    # Still in Morton order: a subsequence of the full voxel list.
-    full = filters.voxel_downsample(cloud, 0.1, 20000)
-    keys = {tuple(p) for p in full.xyz[full.mask].numpy().tolist()}
-    assert all(tuple(p) in keys for p in out.xyz[out.mask].numpy().tolist())
-    fits = filters.voxel_downsample(cloud, 1.0, 20000, overflow="spread")
-    same = filters.voxel_downsample(cloud, 1.0, 20000, overflow="drop")
-    assert torch.equal(fits.xyz, same.xyz) and torch.equal(fits.mask, same.mask)
-    with pytest.raises(ValueError):
-        filters.voxel_downsample(cloud, 0.1, 2048, overflow="random")
+def test_cli_refuses_an_initial_map_beyond_its_bound(tmp_path, monkeypatch):
+    # As the JAX CLI, which pads the prior map to 262144 lanes: a larger
+    # map raises with a message instead of an unbounded kNN-normal pass.
+    assert cli.MAX_INITIAL_MAP_POINTS == 262144
+    monkeypatch.setattr(cli, "MAX_INITIAL_MAP_POINTS", 1000)
+    path = str(tmp_path / "big.pcd")
+    rng = np.random.default_rng(3)
+    io.save_pcd(path, io.make_cloud(rng.uniform(-5.0, 5.0, (1001, 3)).astype(np.float32),
+                                    device="cpu"))
+    with pytest.raises(ValueError, match="1000 < points 1001"):
+        cli.main(["--dataset", "synthetic", "--steps", "1", "--initial-map", path,
+                  "--output", str(tmp_path / "o"), "--device", "cpu"])

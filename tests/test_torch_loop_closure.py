@@ -181,11 +181,9 @@ def test_knn_normal_engine_in_preprocessing():
 
     xyz = _scene_cloud(8, 2048) - np.array([4.0, 4.0, 1.0], np.float32)
     jc, tc = _both(xyz)
-    # Lanes for every voxel: where they overflow, the port's scan path keeps
-    # an even spread of them and the JAX package the first ones.
-    a = jsp.preprocess_scan(jc, 0.5, 20.0, 0.2, 1.0, 2048, normal_radius=0.8, normal_knn=10,
+    a = jsp.preprocess_scan(jc, 0.5, 20.0, 0.2, 1.0, 1024, normal_radius=0.8, normal_knn=10,
                             normal_engine="knn")
-    b = sp.preprocess_scan(tc, 0.5, 20.0, 0.2, 1.0, 2048, normal_radius=0.8, normal_knn=10,
+    b = sp.preprocess_scan(tc, 0.5, 20.0, 0.2, 1.0, 1024, normal_radius=0.8, normal_knn=10,
                            normal_engine="knn")
     np.testing.assert_array_equal(np.asarray(a.mask), _np(b.mask))
     np.testing.assert_allclose(np.asarray(a.xyz), _np(b.xyz), atol=1e-5)
