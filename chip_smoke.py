@@ -31,11 +31,23 @@ odometry's; K1 and K2 at the defaults' shapes, one GICP registration and one
 carve on the card against the CPU, the hashed grid against K1, the command
 line on 20 scans at HDL-64E width (120000 points, read but held to no
 accuracy bar), and a localization run from a Lua parameter file on the
-saved map, thinned to the map initializer's 262144 points.  Every phase prints one
+saved map, thinned to the map initializer's 262144 points.  Then the
+libpointmatcher ICP chain: the reference's production icp.yaml chain,
+written to build/icp.yaml and loaded with ``chain.from_yaml``, registers
+each of the lap's first 20 full-width scans against the one before (and 5
+pairs again at ``KDTreeMatcher``'s default maxDist inf), from the true
+motion perturbed by 0.1 m and 0.5 degrees, held to 0.05 m and 0.5 degrees
+and below the guess's error; an ``ICPSequence`` registers the 20 scans
+against a voxelised patch of the lap's world; each of the 28
+DataPointsFilters runs on a full-width scan with no host sync and on 8192
+lanes card against CPU; the chain runs card against CPU on one pair; and
+K1 is held against its twin at the chain's shapes.  Every phase prints one
 line; any failure ends the run
 with a non-zero exit.  The second-to-last line is a JSON object
-with each kernel's launches on the main path, error against its twin, times and
-bound (``bound_ms`` counts the candidate pairs this run's kernels swept;
+with each kernel's launches on the main path (K1's two chain rows also as
+``launches_chain``, each its own pass's), error against its twin, times and
+bound (``bound_ms`` counts the valid pairs inside the tile pairs this run's
+kernels admitted;
 ``jax_tiling_bound_ms`` beside it the pairs of the JAX kernels' coarser tiling,
 the figure earlier runs reported; ``ms`` is the device time of the kernels one call enqueues, replayed from
 a CUDA graph so that no host gap is counted; ``wrapper_ms`` the whole wrapper as
@@ -49,6 +61,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -70,6 +83,8 @@ F32_FLOP_PER_S = 67e12
 K1_OPS_PER_PAIR = 9
 K2_OPS_PER_PAIR = 9
 K2_OPS_PER_ADMITTED = 16
+# The most distances one cdist call of a library timing holds (16 GB of float32).
+LIBRARY_BLOCK = 1 << 32
 
 # The JAX kernels' tiling (ops/pallas_nn.py TQ, TP), counted beside the bounds.
 JAX_TQ = 256
@@ -113,6 +128,25 @@ def bound_ms(n_bytes: float, n_ops: float):
     """Least time for the work on this card, and what bounds it."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def needed_pairs(torch, cuda_tiles, tile_list, tile_count, q_valid, r_valid) -> float:
+    """The (valid query, valid ref) pairs inside the tile pairs that a plan
+    admits: the work the function needs on these inputs, which the bounds
+    count.  ``tile_list`` [..., nq, np] and ``tile_count`` [..., nq] as the
+    plan kernel wrote them; ``q_valid`` [..., M], ``r_valid`` [..., N]."""
+    import torch.nn.functional as F
+
+    nq, npt = tile_list.shape[-2:]
+    lead = tile_list.shape[:-2]
+    qv = F.pad(q_valid.to(torch.float64), (0, nq * cuda_tiles.TQ - q_valid.shape[-1]))
+    rv = F.pad(r_valid.to(torch.float64), (0, npt * cuda_tiles.TP - r_valid.shape[-1]))
+    qv = qv.reshape(lead + (nq, cuda_tiles.TQ)).sum(-1)
+    rv = rv.reshape(lead + (npt, cuda_tiles.TP)).sum(-1)
+    used = torch.arange(npt, device=tile_list.device) < tile_count[..., None]
+    ids = torch.where(used, tile_list.long(), 0).clamp(0, npt - 1)
+    refs = torch.where(used, torch.gather(rv[..., None, :].expand(ids.shape), -1, ids), 0.0)
+    return float((qv * refs.sum(-1)).sum())
 
 
 def bench_params(lag: int, scan_points: int, patch: int, table_points: int, matcher="auto"):
@@ -215,7 +249,7 @@ def check_nn(torch, cuda_nn, q, r, label, prepared=False, max_dist=MAX_DIST, min
         fail(f"K1 {label}: {int((~same & within).sum())} indices differ from the twin")
     if not bool((r[ki[within], 0].abs() < 1e7).all()):
         fail(f"K1 {label}: a query within range matched a sentinel ref")
-    if bool((kd2[~q_valid] <= max_dist ** 2).any()):
+    if bool((torch.isfinite(kd2) & (kd2 <= max_dist ** 2))[~q_valid].any()):
         fail(f"K1 {label}: an invalid query passes the distance gate")
     err = float((kd2 - pd2)[within].abs().max())
     if err > 0.0:
@@ -337,7 +371,7 @@ def kernel_checks(torch, dev, gen, world):
     (center, prep, k_list, k_count), p_count, entries, prep_err, plan_err = check_tiles(
         torch, cuda_tiles, q[None], None, r[None], None, "K1 inputs",
         lambda c: cuda_nn._launch(q, cuda_nn.prepare_ref(r), MAX_DIST, with_plan=True)[2:])
-    (center2, prep2, _, k_count2), p_count2, _, prep_err2, plan_err2 = check_tiles(
+    (center2, prep2, k_list2, k_count2), p_count2, _, prep_err2, plan_err2 = check_tiles(
         torch, cuda_tiles, blk.xyz, blk.mask, blk.xyz, blk.mask, "K2 inputs",
         lambda c: cuda_moments._launch(blk.xyz, blk.mask, c, RADIUS, with_plan=True)[2:])
     extra = int(k_count.sum()) - int(p_count.sum())
@@ -394,9 +428,11 @@ def kernel_checks(torch, dev, gen, world):
     # -- 3b. K1 against its twin ------------------------------------------------
     err1, exact1 = check_nn(torch, cuda_nn, q, r, "main")
     check_nn(torch, cuda_nn, q, r, "main, prepared reference", prepared=True)
-    # The bound counts the pairs that the sweep evaluates on these inputs:
-    # its own admissible tile pairs, as the plan kernel listed them.
-    pairs = float(k_count.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    # The bound counts the valid pairs of the sweep's own admissible tile
+    # pairs, as the plan kernel listed them; swept_pairs the lanes it sweeps.
+    swept = float(k_count.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    pairs = needed_pairs(torch, cuda_tiles, k_list, k_count, q[None, :, 0].abs() < 1e7,
+                         r[None, :, 0].abs() < 1e7)
     qd, rd, _ = cuda_nn._demean(q, r)
     jax_pairs = jax_tiling_pairs(cuda_tiles, qd, qd[:, 0].abs() < 1e7, rd,
                                  rd[:, 0].abs() < 1e7, MAX_DIST)
@@ -413,7 +449,8 @@ def kernel_checks(torch, dev, gen, world):
     phase("K1 nn", shape=f"{q.shape[0]}x{r.shape[0]}",
           valid=f"{int((q[:, 0].abs() < 1e7).sum())}x{int((r[:, 0].abs() < 1e7).sum())}",
           max_abs_err_d2=err1, exact_idx_share=f"{exact1:.6f}",
-          swept_pairs=f"{pairs:.0f}", jax_tiling_pairs=f"{jax_pairs:.0f}",
+          swept_pairs=f"{swept:.0f}", needed_pairs=f"{pairs:.0f}",
+          jax_tiling_pairs=f"{jax_pairs:.0f}",
           ms=f"{k1_ms:.4f}", wrapper_ms=f"{k1_wrapper_ms:.4f}",
           prepare_ref_ms=f"{k1_prepare_ms:.4f}", unprepared_wrapper_ms=f"{k1_raw_ms:.4f}",
           plain_ms=f"{k1_plain_ms:.4f}", cdist_argmin_ms=f"{k1_lib_ms:.4f}",
@@ -469,7 +506,8 @@ def kernel_checks(torch, dev, gen, world):
     if not err2 <= 1e-5:
         fail(f"K2: covariance differs from the twin by {err2} (> 1e-5)")
     xd, pd, valid2 = cuda_nn._demean(blk.xyz, blk.xyz, blk.mask)
-    pairs2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    swept2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    pairs2 = needed_pairs(torch, cuda_tiles, k_list2, k_count2, valid2, valid2)
     jax_pairs2 = jax_tiling_pairs(cuda_tiles, xd, valid2, pd, valid2, RADIUS)
     admitted = float(kc[m].sum())
     k2_ms = graph_ms(lambda: cuda_moments._launch(blk.xyz, blk.mask, center2, RADIUS))
@@ -482,7 +520,8 @@ def kernel_checks(torch, dev, gen, world):
     k2_jax_bound, _ = bound_ms(k2_bytes,
                                jax_pairs2 * K2_OPS_PER_PAIR + admitted * K2_OPS_PER_ADMITTED)
     phase("K2 moments", shape=f"{LAG}x{N_SCAN}", max_abs_err_cov=err2,
-          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{pairs2:.0f}",
+          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{swept2:.0f}",
+          needed_pairs=f"{pairs2:.0f}",
           jax_tiling_pairs=f"{jax_pairs2:.0f}",
           ms=f"{k2_ms:.4f}", wrapper_ms=f"{k2_wrapper_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
           bound_ms=f"{k2_bound:.6f}", bound_by=k2_by,
@@ -714,29 +753,49 @@ def slam_online(torch, dev, gen):
 def nn_shape_row(torch, label: str, q, r, max_dist: float, launches: int):
     """K1 against its twin on queries ``q`` and refs ``r`` at ``max_dist``,
     from raw refs and from a prepared reference, with its times and its
-    bound (the pairs its own tile lists sweep on these inputs).  Prints the
-    phase line and returns the row of the kernels line; ``launches`` is the
-    count of the path that gives K1 this shape."""
+    bound (the valid pairs of the tile pairs its own lists admit on these
+    inputs), and ``cdist`` + ``argmin`` in query chunks of at most
+    LIBRARY_BLOCK distances.  Prints the phase line and returns the row of
+    the kernels line; ``launches`` is the count of the path that gives K1
+    this shape."""
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_nn, cuda_tiles
 
     err, exact = check_nn(torch, cuda_nn, q, r, label, max_dist=max_dist, min_share=0.05)
     check_nn(torch, cuda_nn, q, r, label + ", prepared reference", prepared=True,
              max_dist=max_dist, min_share=0.05)
     ref = cuda_nn.prepare_ref(r)
-    _, _, _, k_count = cuda_nn._launch(q, ref, max_dist, with_plan=True)
-    pairs = float(k_count.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    _, _, k_list, k_count = cuda_nn._launch(q, ref, max_dist, with_plan=True)
+    # The kernel's lists hold the plain version's (a pair more only on the
+    # rounding edge, which maxDist inf does not have; no empty tile there).
+    _, p_count, _, _ = cuda_tiles.tile_plan_plain(q[None], None, ref.center[None],
+                                                  ref.p_min[None], ref.p_max[None], max_dist)
+    if bool((k_count < p_count[0]).any()) or (
+            math.isinf(max_dist) and not torch.equal(k_count, p_count[0])):
+        fail(f"K1 {label}: the plan admitted {int(k_count.sum())} tile pairs, the plain "
+             f"version {int(p_count.sum())}")
+    swept = float(k_count.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    pairs = needed_pairs(torch, cuda_tiles, k_list, k_count, q[:, 0].abs() < 1e7,
+                         r[:, 0].abs() < 1e7)
     ms = graph_ms(lambda: cuda_nn._launch(q, ref, max_dist))
     wrapper_ms = cuda_ms(lambda: cuda_nn.nn(q, ref, max_dist), reps=50)
     plain_ms = cuda_ms(lambda: cuda_nn.nn_plain(q, r, max_dist), reps=3, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.cdist(q[None], r[None])[0].argmin(-1), reps=3, warmup=1)
+    chunk = max(1, LIBRARY_BLOCK // r.shape[0])
+
+    def library():
+        for i in range(0, q.shape[0], chunk):
+            torch.cdist(q[None, i:i + chunk], r[None])[0].argmin(-1)
+    torch.cuda.empty_cache()
+    lib_ms = cuda_ms(library, reps=3, warmup=1)
+    torch.cuda.empty_cache()
     bound, by = bound_ms(q.numel() * 4 + r.numel() * 4 + q.shape[0] * (8 + 4),
                          pairs * K1_OPS_PER_PAIR)
     phase("K1 nn " + label, shape=f"{q.shape[0]}x{r.shape[0]}",
           valid=f"{int((q[:, 0].abs() < 1e7).sum())}x{int((r[:, 0].abs() < 1e7).sum())}",
           max_dist=f"{max_dist:g}", launches=launches, max_abs_err_d2=err,
-          exact_idx_share=f"{exact:.6f}", swept_pairs=f"{pairs:.0f}",
-          ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          cdist_argmin_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.6f}", bound_by=by)
+          exact_idx_share=f"{exact:.6f}", swept_pairs=f"{swept:.0f}",
+          needed_pairs=f"{pairs:.0f}", ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", cdist_argmin_ms=f"{lib_ms:.4f}",
+          cdist_argmin_chunks=-(-q.shape[0] // chunk), bound_ms=f"{bound:.6f}", bound_by=by)
     return {"name": f"nn ({label})", "route": "cuda",
             "source": "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/nn.cu",
             "replaces": "open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_nn.py:154",
@@ -761,8 +820,10 @@ def moments_shape_row(torch, label: str, blk, launches: int):
     if not err2 <= 1e-5:
         fail(f"K2 {label}: covariance differs from the twin by {err2} (> 1e-5)")
     center = cuda_tiles.centroid(blk.xyz, m)
-    _, _, _, k_count2 = cuda_moments._launch(blk.xyz, m, center, RADIUS, with_plan=True)
-    pairs2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    _, _, k_list2, k_count2 = cuda_moments._launch(blk.xyz, m, center, RADIUS, with_plan=True)
+    swept2 = float(k_count2.sum()) * cuda_tiles.TQ * cuda_tiles.TP
+    valid2 = m & (blk.xyz[..., 0].abs() < 1e7)
+    pairs2 = needed_pairs(torch, cuda_tiles, k_list2, k_count2, valid2, valid2)
     admitted = float(kc[m].sum())
     ms2 = graph_ms(lambda: cuda_moments._launch(blk.xyz, m, center, RADIUS))
     wrapper_ms2 = cuda_ms(lambda: cuda_moments.radius_moments(blk.xyz, m, RADIUS))
@@ -772,8 +833,8 @@ def moments_shape_row(torch, label: str, blk, launches: int):
                            pairs2 * K2_OPS_PER_PAIR + admitted * K2_OPS_PER_ADMITTED)
     phase("K2 moments " + label, shape=f"{m.shape[0]}x{m.shape[1]}", valid=int(m.sum()),
           launches=launches, max_abs_err_cov=err2,
-          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{pairs2:.0f}",
-          ms=f"{ms2:.4f}", wrapper_ms=f"{wrapper_ms2:.4f}", plain_ms=f"{plain_ms2:.4f}",
+          mean_count=f"{admitted / float(m.sum()):.2f}", swept_pairs=f"{swept2:.0f}",
+          needed_pairs=f"{pairs2:.0f}", ms=f"{ms2:.4f}", wrapper_ms=f"{wrapper_ms2:.4f}", plain_ms=f"{plain_ms2:.4f}",
           bound_ms=f"{bound2:.6f}", bound_by=by2)
     return {"name": f"moments ({label})", "route": "cuda",
             "source": "open3d_slam_advanced_rss_2024_public_tpu_torch/csrc/moments.cu",
@@ -1043,11 +1104,9 @@ def submap_on(sm, device):
     """A copy of a submap with its tensors on ``device``."""
     import dataclasses
 
-    def moved(vm):
-        return None if vm is None else dataclasses.replace(
-            vm, **{f.name: getattr(vm, f.name).to(device) for f in dataclasses.fields(vm)})
     return dataclasses.replace(
-        sm, map=moved(sm.map), dense_map=moved(sm.dense_map),
+        sm, map=sm.map.to(device),
+        dense_map=None if sm.dense_map is None else sm.dense_map.to(device),
         feature_cloud=None if sm.feature_cloud is None else sm.feature_cloud.to(device),
         features=None if sm.features is None else sm.features.to(device),
         pose=sm.pose.copy(), _center=np.array(sm.center()), _center_copy=None)
@@ -1621,8 +1680,7 @@ def cli_default_shapes(torch, dev, slam, counts, gt):
                                            / "000000.bin"), device=dev).transform(pose)
     kw = dict(carve_voxel_size=sc.voxel_size, truncation_distance=sc.truncation_distance,
               max_ray_length=sc.max_raytracing_length)
-    host = dataclasses.replace(submap, **{f.name: getattr(submap, f.name).cpu()
-                                          for f in dataclasses.fields(submap)})
+    host = submap.to("cpu")
     t0 = time.perf_counter()
     on_card = voxel_map.carve(submap, scan_map, pose[:3, 3], **kw)
     torch.cuda.synchronize()
@@ -1902,6 +1960,445 @@ def cli_localization(torch, dev, gt):
         fail(f"cli localization: the last pose is {end_err:.3f} m from the ground truth")
 
 
+# -- the libpointmatcher ICP chain (icp.yaml) -------------------------------
+
+# The chain of the reference's icp.yaml (ros/open3d_slam_ros/param/icp.yaml),
+# as tests/test_chain.py's PRODUCTION_CHAIN, with the NullLogger.
+PRODUCTION_CHAIN = {
+    "readingDataPointsFilters": [{"RandomSamplingDataPointsFilter": {"prob": 0.9}}],
+    "referenceDataPointsFilters": [{"SurfaceNormalDataPointsFilter": {"knn": 10,
+                                                                      "radius": 0.8}}],
+    "matcher": {"KDTreeMatcher": {"knn": 1, "maxDist": 0.5}},
+    "outlierFilters": [{"TrimmedDistOutlierFilter": {"ratio": 0.90}},
+                       {"SurfaceNormalOutlierFilter": {"maxAngle": 1.57}}],
+    "errorMinimizer": "PointToPlaneErrorMinimizer",
+    "transformationCheckers": [
+        {"CounterTransformationChecker": {"maxIterationCount": 15}},
+        {"DifferentialTransformationChecker": {"minDiffRotErr": 0.001, "minDiffTransErr": 0.01,
+                                               "smoothLength": 3}}],
+    "inspector": "NullInspector",
+    "logger": "NullLogger",
+}
+CHAIN_GUESS_M = 0.1        # the guess: the true motion perturbed by 0.1 m ...
+CHAIN_GUESS_DEG = 0.5      # ... and 0.5 degrees, in seeded random directions
+CHAIN_BAR_M = 0.05
+CHAIN_BAR_DEG = 0.5
+CHAIN_INF_PAIRS = 5        # pairs registered at maxDist inf (KDTreeMatcher's default)
+CHAIN_MAP_RADIUS = 25.0    # the sequence's map patch around scan 10 ...
+CHAIN_MAP_VOXEL = 0.25     # ... voxelised to fit the package's map_patch_capacity
+CHAIN_MAP_CAPACITY = 65536
+CHAIN_FILTER_POINTS = 8192
+CHAIN_TWIN_POINTS = 16384
+BINNING_SHARE = 1e-3       # lanes a direction-binning filter may move, card vs CPU
+
+CHAIN_FILTERS = [
+    ("IdentityDataPointsFilter", {}),
+    ("RemoveNaNDataPointsFilter", {}),
+    ("MaxDistDataPointsFilter", {"maxDist": 20.0}),
+    ("MinDistDataPointsFilter", {"minDist": 3.0}),
+    ("DistanceLimitDataPointsFilter", {"dim": 1, "dist": 10.0, "removeInside": 1}),
+    ("BoundingBoxDataPointsFilter", {"xMin": -15.0, "xMax": 15.0, "yMin": -15.0,
+                                     "yMax": 15.0, "zMin": -3.0, "zMax": 3.0}),
+    ("MaxQuantileOnAxisDataPointsFilter", {"ratio": 0.5, "dim": 0}),
+    ("MaxDensityDataPointsFilter", {"maxDensity": 100.0}),
+    ("SurfaceNormalDataPointsFilter", {"knn": 10, "radius": 0.8}),
+    ("SamplingSurfaceNormalDataPointsFilter", {"ratio": 0.5, "knn": 7}),
+    ("OrientNormalsDataPointsFilter", {"towardCenter": 1}),
+    ("ObservationDirectionDataPointsFilter", {}),
+    ("IncidenceAngleDataPointsFilter", {}),
+    ("RandomSamplingDataPointsFilter", {"prob": 0.9}),
+    ("MaxPointCountDataPointsFilter", {"maxCount": 50000}),
+    ("FixStepSamplingDataPointsFilter", {"startStep": 3}),
+    ("ShadowDataPointsFilter", {"eps": 0.1}),
+    ("SimpleSensorNoiseDataPointsFilter", {"sensorType": 1}),
+    ("VoxelGridDataPointsFilter", {"vSizeX": 0.2}),
+    ("NormalSpaceDataPointsFilter", {"nbSample": 20000}),
+    ("CovarianceSamplingDataPointsFilter", {"nbSample": 20000}),
+    ("OctreeGridDataPointsFilter", {"maxSizeByNode": 0.3}),
+    ("HiddenPointRemovalDataPointsFilter", {}),
+    ("CutAtDescriptorThresholdDataPointsFilter", {"descName": "ranges", "threshold": 15.0}),
+    ("RemoveSensorBiasDataPointsFilter", {}),
+    # The scan as a 64-row range image (HDL-64E: 64 lasers; ``range_image``).
+    ("OrganizedCloudSurfaceNormalDataPointsFilter", {"rows": 64, "knn": 5, "maxDist": 1.0}),
+    ("ElipsoidsDataPointsFilter", {"knn": 7, "samplingMethod": 1, "keepEigenValues": 1,
+                                   "keepEigenVectors": 1, "keepShapes": 1}),
+    ("GestaltDataPointsFilter", {"ratio": 0.3, "radius": 2.0, "keepMeans": 1,
+                                 "keepEigenValues": 1}),
+]
+# Filters that bin view or normal directions (atan2/arcsin round per device),
+# and gestalt, whose keypoint gates sit on its eigenvectors.
+CHAIN_BINNING = ("normalspace", "hiddenpointremoval", "gestalt")
+
+
+def read_kitti_scan(torch, path, dev):
+    """A KITTI velodyne record file as a cloud with its reflectance as the
+    ``intensity`` channel."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.pointcloud import make_cloud
+
+    data = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return make_cloud(data[:, :3], device=dev, attrs={"intensity": data[:, 3]})
+
+
+def perturbed(T: np.ndarray, rng) -> np.ndarray:
+    """``T`` moved by CHAIN_GUESS_M and turned by CHAIN_GUESS_DEG about
+    seeded random directions."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    shift = rng.normal(size=3)
+    K = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]], [-axis[1], axis[0], 0.0]])
+    a = np.radians(CHAIN_GUESS_DEG)
+    D = np.eye(4)
+    D[:3, :3] = np.eye(3) + np.sin(a) * K + (1.0 - np.cos(a)) * K @ K
+    D[:3, 3] = shift * CHAIN_GUESS_M / np.linalg.norm(shift)
+    return (T @ D).astype(np.float32)
+
+
+def chain_accuracy(label, est, truth, guess):
+    """(translation m, rotation deg) of ``est`` against ``truth``; fails
+    beyond CHAIN_BAR_M / CHAIN_BAR_DEG or above the guess's error."""
+    dt, dr = transform_difference(truth, est)
+    gt_, gr = transform_difference(truth, guess)
+    dr, gr = np.degrees(dr), np.degrees(gr)
+    if not (dt < CHAIN_BAR_M and dr < CHAIN_BAR_DEG and dt < gt_ and dr < gr):
+        fail(f"{label}: {dt:.4f} m and {dr:.4f} deg off the truth (guess {gt_:.4f} m, "
+             f"{gr:.4f} deg; bar {CHAIN_BAR_M} m, {CHAIN_BAR_DEG} deg)")
+    return dt, dr
+
+
+def chain_production(torch, dev, gt):
+    """Phase ``chain production``: PRODUCTION_CHAIN written to build/icp.yaml
+    and loaded with the port's ``chain.from_yaml`` (matcher "auto": K1),
+    then scan i registered against scan i - 1 over the lap's first
+    KITTI_FULL_SCANS scans at HDL-64E width (pmicp's use of the chain), from
+    the true motion perturbed by 0.1 m and 0.5 degrees; then the first
+    CHAIN_INF_PAIRS pairs again at maxDist inf.  Returns (the chain, K1
+    launches at 0.5 and at inf, the last pair's reading, reference and guess)."""
+    import yaml
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import cuda_nn, filters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import chain
+
+    path = OUT / "icp.yaml"
+    path.write_text(yaml.safe_dump(PRODUCTION_CHAIN))
+    c = chain.from_yaml(str(path))
+    if c.config.matcher != "cuda" or c.config.max_correspondence_dist != 0.5:
+        fail(f"chain production: loaded {c.config}")
+    velo = KITTI_FULL_DIR / "sequences" / "00" / "velodyne"
+    scans = [read_kitti_scan(torch, velo / f"{i:06d}.bin", dev) for i in range(KITTI_FULL_SCANS)]
+    rng = np.random.default_rng(50)
+    launches = {}
+    for label, maxd, n in (("chain production", 0.5, KITTI_FULL_SCANS),
+                           ("chain production maxDist inf", float("inf"), CHAIN_INF_PAIRS + 1)):
+        spec = json.loads(json.dumps(PRODUCTION_CHAIN))
+        spec["matcher"]["KDTreeMatcher"]["maxDist"] = maxd
+        cc = c if maxd == 0.5 else chain.from_dict(spec)
+        errs, ms, iters, nn_calls = [], [], [], []
+        for i in range(1, n):
+            truth = (np.linalg.inv(gt[i - 1]) @ gt[i]).astype(np.float32)
+            guess = perturbed(truth, rng)
+            torch.cuda.synchronize()
+            n0, t0 = cuda_nn.launches, time.perf_counter()
+            res = cc.register(scans[i], scans[i - 1], guess, seed=i)
+            T = res.transform.cpu().numpy()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            nn_calls.append(cuda_nn.launches - n0)
+            iters.append(int(res.iterations))
+            errs.append(chain_accuracy(f"{label} pair {i - 1}-{i}", T, truth, guess))
+        launches[maxd] = sum(nn_calls)
+        phase(label, pairs=n - 1, points=span([int(s.mask.sum()) for s in scans[:n]]),
+              reading_after_filters=int(cc.process_reading(
+                  scans[1], seed=filters.fold_in(1, 0)).mask.sum()),
+              ms_per_pair=f"{np.mean(ms):.2f}", ms_first=f"{ms[0]:.2f}",
+              iterations=span(iters), k1_launches=launches[maxd],
+              k1_launches_per_pair=span(nn_calls),
+              max_err_m=f"{max(e[0] for e in errs):.5f}",
+              max_err_deg=f"{max(e[1] for e in errs):.5f}",
+              guess_m=CHAIN_GUESS_M, guess_deg=CHAIN_GUESS_DEG)
+    last = KITTI_FULL_SCANS - 1
+    truth = (np.linalg.inv(gt[last - 1]) @ gt[last]).astype(np.float32)
+    return c, launches, (last, scans[last], scans[last - 1], perturbed(truth, rng)), scans
+
+
+def chain_sequence(torch, dev, c, gt, scans):
+    """Phase ``chain sequence``: ``ICPSequence(chain=...)``; ``set_map`` once
+    on a patch of the lap's world within CHAIN_MAP_RADIUS of scan 10,
+    voxelised to fit CHAIN_MAP_CAPACITY lanes (fails on overflow), then
+    ``compute`` for the KITTI_FULL_SCANS full-width scans against it, from
+    the true poses perturbed as in ``chain production``."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import ICPSequence
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.pointcloud import compact
+
+    world = kitti_world(dev)
+    center = torch.tensor(gt[10][:3, 3], dtype=torch.float32).to(dev)
+    near = filters.norm3(world.xyz - center) <= CHAIN_MAP_RADIUS
+    patch = filters.voxel_downsample(world.with_mask(near), CHAIN_MAP_VOXEL, world.capacity,
+                                     order="lex")
+    voxels = int(patch.mask.sum())
+    if voxels > CHAIN_MAP_CAPACITY:
+        fail(f"chain sequence: {voxels} voxels overflow {CHAIN_MAP_CAPACITY} lanes")
+    patch = compact(patch, CHAIN_MAP_CAPACITY)
+    seq = ICPSequence(chain=c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq.set_map(patch)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(51)
+    errs, ms = [], []
+    for i, scan in enumerate(scans):
+        truth = gt[i].astype(np.float32)
+        guess = perturbed(truth, rng)
+        t0 = time.perf_counter()
+        T = seq.compute(scan, guess, seed=i).transform.cpu().numpy()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(chain_accuracy(f"chain sequence scan {i}", T, truth, guess))
+    phase("chain sequence", map_voxels=voxels, map_lanes=CHAIN_MAP_CAPACITY,
+          voxel=CHAIN_MAP_VOXEL, scans=len(scans), set_map_ms=f"{set_ms:.2f}",
+          ms_per_compute=f"{np.mean(ms):.2f}", ms_first=f"{ms[0]:.2f}",
+          max_err_m=f"{max(e[0] for e in errs):.5f}",
+          max_err_deg=f"{max(e[1] for e in errs):.5f}")
+
+
+def range_image(torch, cloud, rows: int, cols: int):
+    """The scan as an organized ``rows`` x ``cols`` range image: elevation
+    rows and azimuth columns spanning the scan's extent, each pixel the
+    nearest point that falls in it, empty pixels masked (the organized
+    filter's input; a real sensor delivers its scan in this order)."""
+    x, y, z = cloud.xyz.unbind(-1)
+    rng = torch.sqrt((x * x + y * y) + z * z)
+    el = torch.where(cloud.mask, torch.atan2(z, torch.sqrt(x * x + y * y)), 0.0)
+    lo = torch.where(cloud.mask, el, float("inf")).amin()
+    hi = torch.where(cloud.mask, el, -float("inf")).amax()
+    r = torch.clamp(((el - lo) / (hi - lo) * rows).long(), 0, rows - 1)
+    c = torch.clamp(((torch.atan2(y, x) + np.pi) / (2 * np.pi) * cols).long(), 0, cols - 1)
+    pixel = torch.where(cloud.mask, r * cols + c, rows * cols)
+    order = torch.argsort(torch.where(cloud.mask, rng, float("inf")), stable=True)
+    order = order[torch.argsort(pixel[order], stable=True)]
+    first = torch.ones_like(cloud.mask)
+    first[1:] = pixel[order][1:] != pixel[order][:-1]
+    lane = torch.full((rows * cols + 1,), -1, dtype=torch.long, device=cloud.device)
+    lane[torch.where(first, pixel[order], rows * cols)] = order
+    lane = lane[:rows * cols]
+    return cloud.take(lane.clamp(min=0), lane >= 0)
+
+
+def chain_pipeline(name, params, cloud):
+    """The filter's pipeline for ``cloud`` (the organized filter: the image
+    width from the cloud's lanes)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import chain
+
+    if chain._canon(name) == "organizedcloudsurfacenormal":
+        params = dict(params, cols=cloud.capacity // params["rows"])
+    return chain.FilterPipeline([(name, params)])
+
+
+def with_normals(torch, scan, n_lanes):
+    """The first ``n_lanes`` lanes of a scan (a multiple of 64), with kNN
+    normals, as the filters' input."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import normals
+
+    cut = scan.map(lambda t: t[:n_lanes])
+    return normals.estimate_normals(cut, radius=0.8, k=10)
+
+
+def chain_filters(torch, dev, scans):
+    """Phase ``chain filters``: every one of the 28 DataPointsFilters on one
+    full-width scan on the card (its ms, and 0 host syncs under torch's sync
+    debug mode, as the main path's warm-up is checked); then each on a
+    CHAIN_FILTER_POINTS-lane scan on the card against the CPU with the same
+    draws: masks equal (directional binning: BINNING_SHARE of the lanes),
+    values within 1e-5 (and 1e-5 relative) on all but BINNING_SHARE of the
+    lanes; eigenvectors up to sign."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import chain
+
+    full = with_normals(torch, scans[0], scans[0].capacity // 64 * 64)
+    small = with_normals(torch, scans[1], CHAIN_FILTER_POINTS)
+    # The organized filter's inputs: the full scan as a 64-row range image,
+    # and a 64 x 128 window of it.
+    image = range_image(torch, full, 64, full.capacity // 64)
+    cols = torch.arange(image.capacity, device=dev).reshape(64, -1)
+    window = image.take(cols[:, :CHAIN_FILTER_POINTS // 64].reshape(-1))
+    torch.cuda.synchronize()
+    rows = []
+    for name, params in CHAIN_FILTERS:
+        canon = chain._canon(name)
+        inp, sinp = ((image, window) if canon == "organizedcloudsurfacenormal"
+                     else (full, small))
+        pipe = chain_pipeline(name, params, inp)
+        pipe(inp, seed=7)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            out = pipe(inp, seed=7)
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        syncs = [w for w in syncs if "called a synchronizing CUDA operation" in str(w.message)]
+        if syncs:
+            fail(f"chain filters {name}: {len(syncs)} host syncs, at "
+                 + ", ".join(sorted({f"{w.filename}:{w.lineno}" for w in syncs})))
+        t0 = time.perf_counter()
+        sp = chain_pipeline(name, params, sinp)
+        a, b = sp(sinp, seed=9), sp(sinp.to("cpu"), seed=9)
+        mask_diff, value_share, value_err = compare_filtered(torch, canon, params, a, b)
+        rows.append(f"{canon}:{ms:.2f}")
+        phase(f"chain filter {canon}", ms=f"{ms:.3f}", kept=f"{int(out.mask.sum())}/{full.capacity}",
+              host_syncs=0, card_vs_cpu_s=f"{time.perf_counter() - t0:.2f}",
+              card_vs_cpu_mask_diff=mask_diff,
+              card_vs_cpu_share_beyond_1e5=f"{value_share:.6f}",
+              card_vs_cpu_max_err=f"{value_err:.3g}")
+    phase("chain filters", filters=len(CHAIN_FILTERS), full_width=full.capacity,
+          small=small.capacity, ms=" ".join(rows))
+
+
+def knn_planar(torch, cloud, params):
+    """Lanes whose kNN neighbourhood (the filter's k and radius) is a plane,
+    its smallest covariance eigenvalue below a fifth of the middle one:
+    where the normal is defined beyond rounding (at near-equal eigenvalues a
+    rounding difference in the matmul-ranked neighbours or the closed-form
+    eigenvector turns it)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import bruteforce
+
+    idx, _, ok = bruteforce.knn(cloud.xyz, cloud.mask, cloud.xyz,
+                                float(params.get("radius", 0.5)), k=int(params["knn"]))
+    w = ok.float()[..., None]
+    d = (cloud.xyz[idx] - ((cloud.xyz[idx] * w).sum(1) / w.sum(1).clamp(min=1.0))[:, None]) * w
+    ev = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", d, d).double())
+    return (ev[:, 0] < 0.2 * ev[:, 1]) & (ok.sum(-1) >= 5)
+
+
+def compare_filtered(torch, canon, params, a, b):
+    """Card output ``a`` against CPU output ``b`` of one filter: (lanes whose
+    mask differs, share of the common lanes whose values differ beyond 1e-5,
+    the largest difference on the rest).  Fails beyond the bars.  kNN
+    normals are held where their neighbourhood is a plane, within 1e-4."""
+    a = a.to("cpu")
+    diff = int((a.mask != b.mask).sum())
+    if diff > (BINNING_SHARE * a.capacity if canon in CHAIN_BINNING else 0):
+        fail(f"chain filter {canon}: masks differ on {diff} of {a.capacity} lanes, card vs CPU")
+    if a.attr_names != b.attr_names:
+        fail(f"chain filter {canon}: channels {a.attr_names} on the card, {b.attr_names} on "
+             "the CPU")
+    both = a.mask & b.mask
+    # (card, CPU, sign-free, lanes): eigenvectors (the surfel normals,
+    # eigVectors*) compare up to sign where their eigenvalue stands 1% of
+    # the largest apart from the others (closer, float32 rounding turns them
+    # by more than 1e-5).
+    apart = [both] * 3
+    if "eigValues0" in a.attr_names:
+        ev = torch.stack([b.attr(f"eigValues{j}") for j in range(3)], -1).double()
+        scale = ev.abs().amax(-1).clamp(min=1e-30)
+        apart = [both & (torch.stack([(ev[:, j] - ev[:, k]).abs() for k in range(3) if k != j])
+                         .amin(0) > 1e-2 * scale) for j in range(3)]
+    fields = [("xyz", a.xyz, b.xyz, False, both)]
+    if canon in ("surfacenormal", "samplingsurfacenormal"):
+        planar = both & knn_planar(torch, b, params)
+        d = (a.normals - b.normals).abs()[planar]
+        if bool((d > 1e-4).any()):
+            fail(f"chain filter {canon}: normals of {int((d > 1e-4).any(-1).sum())} planar "
+                 "lanes differ by more than 1e-4, card vs CPU")
+    elif canon in ("elipsoids", "gestalt"):
+        fields.append(("normals", a.normals, b.normals, True, apart[0]))
+    elif canon == "organizedcloudsurfacenormal":
+        # The closed-form eigenvalues (the JAX package's arccos of the scaled
+        # determinant, kept for parity) carry ~1e-4 of the largest one
+        # where two of them nearly coincide, which float32 rounding decides
+        # differently on the two devices: the sqrt-eigenvalue descriptors are
+        # held where the eigenvalues are resolved (e0 at least 4% of e2, the
+        # gaps e1 - e0 and e2 - e1 at least 5% of it), the normals within
+        # 1e-4 where the window is a plane (e0 < 0.2 e1, as the kNN
+        # normals') whose middle eigenvalue is resolved (e1 at least 4% of
+        # e2: a line-like window's normal is not), the densities everywhere.
+        # Eigenvalues from the descriptors, in units of e2.
+        lin, pla = b.attr("linearity"), b.attr("planarity")
+        e1, e0 = (1.0 - lin) ** 2, (1.0 - lin - pla) ** 2
+        spread = both & (e0 >= 0.04) & (e1 - e0 >= 0.05) & (1.0 - e1 >= 0.05)
+        planar = both & (b.normals.abs().sum(-1) > 0) & (e0 < 0.2 * e1) & (e1 >= 0.04)
+        d = (a.normals - b.normals).abs()[planar]
+        if bool((d > 1e-4).any()):
+            fail(f"chain filter {canon}: normals of {int((d > 1e-4).any(-1).sum())} of "
+                 f"{int(planar.sum())} planar windows differ by more than 1e-4, card vs CPU")
+    else:
+        fields.append(("normals", a.normals, b.normals, False, both))
+    for k, key in enumerate(a.attr_names):
+        vec = key.startswith("eigVectors")
+        lanes = apart[int(key[10:]) % 3] if vec else both
+        if canon == "organizedcloudsurfacenormal" and key != "densities":
+            lanes = spread
+        fields.append((key, a.attrs[:, k:k + 1], b.attrs[:, k:k + 1], vec, lanes))
+    bad = torch.zeros_like(both)
+    worst = 0.0
+    for _, x, y, signless, lanes in fields:
+        if signless and x.shape[-1] == 3:
+            x = torch.where((x * y).sum(-1, keepdim=True) < 0, -x, x)
+        elif signless:
+            x, y = x.abs(), y.abs()
+        d = (x - y).abs()
+        off = (d > 1e-5 + 1e-5 * y.abs()).any(-1) & lanes
+        bad |= off
+        if bool((lanes & ~off).any()):
+            worst = max(worst, float(d[lanes & ~off].max()))
+    share = float(bad.sum()) / max(int(both.sum()), 1)
+    if share > BINNING_SHARE:
+        per_field = []
+        for key, x, y, _, lanes in fields:
+            d = (x - y).abs().amax(-1)[lanes]
+            per_field.append(f"{key}: {int((d > 1e-5).sum())} lanes, "
+                             f"max {float(d.max()) if d.numel() else 0.0:.3g}")
+        fail(f"chain filter {canon}: {int(bad.sum())} of {int(both.sum())} lanes differ by more "
+             "than 1e-5, card vs CPU (" + "; ".join(per_field) + ")")
+    return diff, share, worst
+
+
+def chain_card_vs_cpu(torch, dev, c, gt):
+    """Phase ``chain card vs cpu``: the production chain on one pair of
+    CHAIN_TWIN_POINTS-point scans (the lap at its reduced width), on the
+    card and on the CPU with the same draws: transforms within 0.1 mm and
+    0.001 degrees."""
+    velo = KITTI_DIR / "sequences" / "00" / "velodyne"
+    a, b = (read_kitti_scan(torch, velo / f"{i:06d}.bin", dev) for i in (0, 1))
+    truth = (np.linalg.inv(gt[0]) @ gt[1]).astype(np.float32)
+    guess = perturbed(truth, np.random.default_rng(52))
+    t0 = time.perf_counter()
+    Tg = c.register(b, a, guess, seed=3).transform.cpu().numpy()
+    gpu_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    Tc = c.register(b.to("cpu"), a.to("cpu"), guess, seed=3).transform.numpy()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dt, dr = transform_difference(Tg, Tc)
+    err = chain_accuracy("chain card vs cpu", Tg, truth, guess)
+    phase("chain card vs cpu", points=f"{int(b.mask.sum())}x{int(a.mask.sum())}",
+          diff_mm=f"{dt * 1e3:.5f}", diff_deg=f"{np.degrees(dr):.6f}", card_ms=f"{gpu_ms:.1f}",
+          cpu_ms=f"{cpu_ms:.1f}", err_m=f"{err[0]:.5f}", err_deg=f"{err[1]:.5f}")
+    if not (dt <= 1e-4 and np.degrees(dr) <= 1e-3):
+        fail(f"chain card vs cpu: {dt * 1e3:.4f} mm and {np.degrees(dr):.6f} deg apart")
+
+
+def chain_kernel_rows(torch, c, last, launches):
+    """Phase ``K1 nn chain``: K1 against its twin at the chain's shape (the
+    last pair's filtered reading under its guess, in Morton order, against
+    the reference in Morton order) at maxDist 0.5 and inf, with times and
+    bounds; the rows of the kernels line."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import filters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import chain
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import se3
+
+    i, reading, reference, guess = last
+    src = chain.kernel_order(c.process_reading(reading, seed=filters.fold_in(i, 0)), c.config)
+    ref = chain.reference_grid(c.process_reference(reference, seed=filters.fold_in(i, 1)),
+                               c.config)
+    q = se3.apply(torch.tensor(guess).to(src.device), src.xyz)
+    rows = []
+    for label, maxd in (("chain", 0.5), ("chain, maxDist inf", float("inf"))):
+        row = nn_shape_row(torch, label, q, ref.points, maxd, launches[maxd])
+        row["launches_chain"] = launches[maxd]  # K1's launches over this pass of the chain
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -2030,6 +2527,24 @@ def main() -> None:
     new_rows += cli_default_shapes(torch, dev, cli_slam, cli_counts, kitti_gt)
     cli_kitti_full_width(torch, dev, kitti_gt)
     cli_localization(torch, dev, kitti_gt)
+
+    # -- 9. the libpointmatcher ICP chain (icp.yaml) ----------------------------
+    seconds = {}
+
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[key] = f"{time.perf_counter() - t:.1f}"
+        return out
+    cuda_nn.reset_launches()
+    c, chain_launches, last_pair, full_scans = timed("production", chain_production, torch,
+                                                     dev, kitti_gt)
+    timed("sequence", chain_sequence, torch, dev, c, kitti_gt, full_scans)
+    timed("filters", chain_filters, torch, dev, full_scans)
+    timed("card_vs_cpu", chain_card_vs_cpu, torch, dev, c, kitti_gt)
+    new_rows += timed("k1_rows", chain_kernel_rows, torch, c, last_pair, chain_launches)
+    phase("chain phases seconds", **seconds,
+          total=f"{sum(float(v) for v in seconds.values()):.1f}")
 
     for row in kernels:
         row["launches"] = launches[row["name"]]

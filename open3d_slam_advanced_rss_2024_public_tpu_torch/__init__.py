@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of the TPU-native LiDAR SLAM framework.
 
-The JAX package ``open3d_slam_advanced_rss_2024_public_tpu`` is the
+The JAX package beside it (the package name without ``_torch``) is the
 reference; this package keeps its layout (``utils/ ops/ ops/registration/
 models/ frontends/``) and function names, runs on an NVIDIA Hopper card,
 and replaces the two Pallas kernels with hand-written CUDA kernels

@@ -1,7 +1,7 @@
 // K2: radius-neighbourhood moments (self-join) for PCA normals, for Hopper.
 //
 // Replaces the Pallas TPU kernel `_moments_kernel` of
-// open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_moments.py (called
+// the JAX package's ops/pallas_moments.py (called
 // through `radius_moments`).  For every point of each of the K scans of a
 // lag block it returns the number of valid points of the same scan within
 // `radius` and their covariance.  One host call, `moments_launch`, enqueues

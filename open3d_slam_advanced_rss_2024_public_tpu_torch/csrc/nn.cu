@@ -1,7 +1,7 @@
 // K1: radius-bounded 1-NN over admissible ref tiles, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_nn_kernel` of
-// open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_nn.py (called through
+// the JAX package's ops/pallas_nn.py (called through
 // `_nn_block`/`nn_pallas`).  One host call, `nn_launch`, enqueues two
 // kernels: `tile_plan` (tiles.cuh: the query tiles' boxes and their lists
 // of admissible ref tiles) and `nn_sweep` below.  The reference side

@@ -2,7 +2,7 @@
 //
 // Replaces the tile bookkeeping that the JAX package leaves to XLA around
 // its two Pallas kernels (`_tile_aabbs` and `_admissible_lists` of
-// open3d_slam_advanced_rss_2024_public_tpu/ops/pallas_nn.py, the de-meaning
+// the JAX package's ops/pallas_nn.py, the de-meaning
 // and padding of `nn_pallas` and `radius_moments`).  As eager torch
 // operations that bookkeeping takes about forty small launches a call and
 // costs more than the sweeps themselves; here it is two kernels:
@@ -23,7 +23,9 @@
 // `tile_plan_plain` in ops/cuda_tiles.py.
 //
 // Invalid query lanes take no part in a box, so the centroid fill that the
-// JAX wrapper needs to keep its boxes tight is gone.  The admission test
+// JAX wrapper needs to keep its boxes tight is gone, and a tile with no
+// valid lane (an empty box) admits no pair, at max_dist inf too, where its
+// infinite gap would pass the test.  The admission test
 // compares the squared box gap with r2_admit, which the wrapper sets a few
 // ulps above max_dist^2: a tile pair the plain test admits is always
 // admitted here, whatever order the three squares are summed in.
@@ -154,11 +156,12 @@ tile_plan_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask
   const float* bmax = pmax + (size_t)b * np_tiles * 3;
   int* out = list + (size_t)row * np_tiles;
   const int warp = tid >> 5, lane = tid & 31;
+  const bool q_empty = !(box[0] <= box[3]);
   int base = 0;
   for (int j0 = 0; j0 < np_tiles; j0 += TQ) {
     const int j = j0 + tid;
     bool adm = false;
-    if (j < np_tiles) {
+    if (j < np_tiles && !q_empty && bmin[3 * j] <= bmax[3 * j]) {
       float lb2 = 0.f;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import voxel_map as vm
-from ..ops.registration.icp import ICPConfig
+from ..ops.registration.icp import ICPConfig, resolve_matcher
 from ..utils.config import SlamParameters
 from ..utils.device import HostCopy, resolve_device, to_device
 from ..utils.pointcloud import SENTINEL, PointCloud, concatenate, empty_cloud, stack
@@ -43,13 +43,6 @@ from ..utils.timebuf import TransformInterpolationBuffer
 from ..utils.timing import GLOBAL_STATS as _STATS
 from . import pipeline
 from .submap_collection import SubmapCollection
-
-
-def resolve_matcher(name: str) -> str:
-    """"auto" -> the hand-written NN kernel K1 on every device (its plain
-    twin on CPU tensors).  The JAX package sends CPU and GPU to brute force
-    (``mapper.py:53-59``); the port's kernel is its GPU matcher."""
-    return "cuda" if name == "auto" else name
 
 
 def icp_config_from_params(params: SlamParameters) -> ICPConfig:
@@ -148,7 +141,9 @@ def _make_pad_scan(template: PointCloud) -> PointCloud:
     keeps the pose, and is never inserted."""
     return PointCloud(xyz=torch.full_like(template.xyz, SENTINEL),
                       normals=torch.zeros_like(template.normals),
-                      mask=torch.zeros_like(template.mask))
+                      mask=torch.zeros_like(template.mask),
+                      attrs=None if template.attrs is None else torch.zeros_like(template.attrs),
+                      attr_names=template.attr_names)
 
 
 class Mapper:

@@ -34,11 +34,11 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
                     estimate_scan_normals: bool = True, normal_radius: float = 0.5,
                     normal_knn: int = 10, seed: int = 0,
                     normal_engine: str = "auto") -> PointCloud:
-    """Wide crop -> voxel downsample (Morton order) -> normals.
-    ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45)."""
-    if downsampling_ratio < 1.0:
-        raise NotImplementedError(
-            "random downsampling is not ported yet (ROADMAP §1, slice 3: filters)")
+    """Wide crop -> voxel downsample (Morton order) -> normals -> random
+    downsample.  ≙ ScanToMapIcp::preprocess (ScanToMapRegistration.cpp:36-45).
+    The random stage draws from a host generator seeded with ``seed``, the
+    same draws for every scan and replay (the reference's reproducibility
+    note, :43-44), and the same on the card and the CPU."""
     engine = resolve_normal_engine(normal_engine)
     scan = filters.remove_non_finite(scan)
     wide = croppers.min_max_radius_cropper(wide_min_radius, wide_max_radius)
@@ -48,6 +48,9 @@ def preprocess_scan(scan: PointCloud, wide_min_radius: float, wide_max_radius: f
         out = normals.estimate_normals_radius(out, radius=normal_radius)
     elif estimate_scan_normals:
         out = normals.estimate_normals(out, radius=normal_radius, k=normal_knn)
+    if downsampling_ratio < 1.0:
+        out = filters.random_sampling(out, filters.uniform(seed, out.capacity, out.device),
+                                      downsampling_ratio)
     return out
 
 

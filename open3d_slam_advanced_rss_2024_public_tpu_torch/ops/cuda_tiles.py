@@ -20,7 +20,8 @@ kernels, ``csrc/tiles.cuh``:
     q_min, q_max)``.  Each TQ-query tile's box over its valid lanes
     (``|x - center| < 1e7`` and ``mask``) and the ids of the reference tiles
     whose box gap is at most ``max_dist``, ascending, ``tile_count`` of them;
-    the rest of a row is unspecified.
+    the rest of a row is unspecified.  A tile with no valid lane admits no
+    pair (its infinite gap would pass at ``max_dist`` inf).
 
 The kernel admits a pair when the squared gap is at most ``admit_r2`` — a
 few ulps above ``max_dist**2`` — so its list always holds the plain
@@ -114,8 +115,11 @@ def box_gap2(q_min, q_max, p_min, p_max) -> Tensor:
 def admissible_lists(q_min, q_max, p_min, p_max, max_dist):
     """Exact AABB-pair lower bounds -> (list int32[..., nq, np],
     count int32[..., nq]).  Rows hold the admissible ref-tile ids first, in
-    ascending order (a stable sort, as in the JAX package)."""
-    adm = box_gap2(q_min, q_max, p_min, p_max) <= r2_of(max_dist)
+    ascending order (a stable sort, as in the JAX package).  Empty boxes
+    (a tile with no valid lane) admit nothing."""
+    adm = ((box_gap2(q_min, q_max, p_min, p_max) <= r2_of(max_dist))
+           & (q_min[..., 0] <= q_max[..., 0])[..., :, None]
+           & (p_min[..., 0] <= p_max[..., 0])[..., None, :])
     order = torch.argsort((~adm).to(torch.int8), dim=-1, stable=True)
     return order.to(torch.int32), adm.sum(-1, dtype=torch.int32)
 

@@ -99,9 +99,11 @@ class HashGrid:
         return self.start.shape[0]
 
 
-def passthrough(cloud: PointCloud, cell_size) -> HashGrid:
+def passthrough(cloud: PointCloud, cell_size, desc_channel: Optional[str] = None) -> HashGrid:
     """A HashGrid carrying the cloud in its ORIGINAL order with no CSR index
-    (for the brute-force and kernel matchers)."""
+    (for the brute-force and kernel matchers).  ``desc_channel`` names the
+    cloud's descriptor channel that the grid carries (the matched reference
+    point's descriptor, which GenericDescriptorOutlierFilter reads)."""
     dev = cloud.device
     n = cloud.capacity
     return HashGrid(
@@ -111,6 +113,7 @@ def passthrough(cloud: PointCloud, cell_size) -> HashGrid:
         start=torch.zeros((1,), dtype=torch.int32, device=dev),
         count=torch.zeros((1,), dtype=torch.int32, device=dev),
         cell=torch.full((), float(cell_size), dtype=torch.float32, device=dev),
+        desc=None if desc_channel is None else cloud.attr(desc_channel),
     )
 
 
@@ -185,7 +188,8 @@ def hash_key(key: Tensor, table_size: int) -> Tensor:
     return h & (table_size - 1)
 
 
-def build(cloud: PointCloud, cell_size, table_size: int = 1 << 14) -> HashGrid:
+def build(cloud: PointCloud, cell_size, table_size: int = 1 << 14,
+          desc_channel: Optional[str] = None) -> HashGrid:
     """Build the index; ``table_size`` must be a power of two.  The argsort
     is stable, so the CSR layout equals the JAX package's."""
     if table_size & (table_size - 1):
@@ -200,7 +204,8 @@ def build(cloud: PointCloud, cell_size, table_size: int = 1 << 14) -> HashGrid:
         0, bucket, torch.ones_like(bucket, dtype=torch.int32))[:table_size]
     start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     return HashGrid(points=cloud.xyz[order], normals=cloud.normals[order],
-                    perm=order.to(torch.int32), start=start, count=counts, cell=cell)
+                    perm=order.to(torch.int32), start=start, count=counts, cell=cell,
+                    desc=None if desc_channel is None else cloud.attr(desc_channel)[order])
 
 
 # The 27-neighbourhood, centre first (a stable sort by L1 norm), so that at

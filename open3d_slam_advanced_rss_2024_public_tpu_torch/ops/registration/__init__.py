@@ -1,2 +1,5 @@
 """Scan registration of the PyTorch/CUDA port."""
-from .icp import ICPConfig, ICPResult, register  # noqa: F401
+from . import chain, icp, inspectors, minimizers, outliers, sequence  # noqa: F401
+from .icp import (ICPConfig, ICPResult, register, register_clouds,  # noqa: F401
+                  register_with_covariance)
+from .sequence import ICPSequence  # noqa: F401

@@ -17,13 +17,14 @@ dispatching once a copy that has landed says converged.  The host still
 never waits, and the result is the fixed-trip result, because the carry is
 frozen from the converged trip on.
 
-The whole surface of the JAX package's ICP loop is here but the parts that
-need descriptor channels (the ``max_dist_field`` gate and the
-``generic_desc`` filter, ROADMAP §1 item 17) and the sharded matcher
-(item 19): every minimizer (point-to-plane with its 4-DOF and 2-D
-restrictions, point-to-point, GICP, similarity, identity), kNN matching,
-the ``outlier_chain`` filters, the bound checker, and the kernel,
-brute-force and hashed-grid matchers.
+The whole surface of the JAX package's ICP loop is here but the sharded
+matcher (ROADMAP §1 item 19): every minimizer (point-to-plane with its
+4-DOF and 2-D restrictions, point-to-point, GICP, similarity, identity),
+kNN matching, the per-point match radius from a descriptor channel
+(``max_dist_field``, ≙ KDTreeVarDistMatcher), every ``outlier_chain``
+filter including ``generic_desc`` (weights from the matched reference
+point's descriptor), the bound checker, and the kernel, brute-force and
+hashed-grid matchers.
 """
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ Tensor = torch.Tensor
 # Matcher names that select kernel K1 ("pallas" keeps JAX parameter files valid).
 KERNEL_MATCHERS = ("cuda", "pallas")
 MATCHERS = KERNEL_MATCHERS + ("bruteforce", "hashgrid")
+
+
+def resolve_matcher(name: str) -> str:
+    """"auto" -> the hand-written NN kernel K1 on every device (its plain
+    twin on CPU tensors).  The JAX package sends CPU and GPU to brute force
+    (``mapper.py:53-59``, and ``chain.from_dict``'s default); the port's
+    kernel is its GPU matcher."""
+    return "cuda" if name == "auto" else name
+
+
 # Trips between two non-blocking looks at a loop's device-side done flag, for
 # every loop whose caller reads its result back anyway (``register`` with
 # ``poll_every``, the pose graph's LM loop).
@@ -100,29 +111,23 @@ class ICPResult:
 
 
 def check_supported(cfg: ICPConfig) -> None:
-    """Raise on the parts of the JAX package's ICP surface not ported yet."""
-    chain = cfg.outlier_chain or ()
-    later = {
-        "max_dist_field (descriptor channels)": (cfg.max_dist_field is not None,
-                                                 "ROADMAP §1 item 17"),
-        "outlier filter 'generic_desc' (descriptor channels)": (
-            any(entry[0] == "generic_desc" for entry in chain), "ROADMAP §1 item 17"),
-        "matcher='sharded'": (cfg.matcher == "sharded" or cfg.shard_axis is not None,
-                              "ROADMAP §1 item 19"),
-    }
-    for what, (used, item) in later.items():
-        if used:
-            raise NotImplementedError(f"ICP {what} is not ported yet ({item})")
+    """Raise on the part of the JAX package's ICP surface not ported yet
+    (the sharded matcher) and on an unknown matcher."""
+    if cfg.matcher == "sharded" or cfg.shard_axis is not None:
+        raise NotImplementedError("ICP matcher='sharded' is not ported yet "
+                                  "(ROADMAP §1 item 19)")
     if cfg.matcher not in MATCHERS:
         raise ValueError(f"unknown matcher: {cfg.matcher!r}")
 
 
-def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask, p2plane_sq):
+def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask, p2plane_sq,
+             ref_desc=None):
     """Compose the outlier-filter chain into per-correspondence weights
     (``icp.py:115-181``).  ``slot_mask`` is the quantile basis (valid
     reading lanes x knn, not-found matches included as +inf);
     ``p2plane_sq`` the squared point-to-plane residuals that the robust
-    filter's point2plane distance reads."""
+    filter's point2plane distance reads; ``ref_desc`` the matched reference
+    point's descriptor that ``generic_desc`` reads."""
     if cfg.outlier_chain is not None:
         w = found.to(torch.float32)
         for entry in cfg.outlier_chain:
@@ -146,6 +151,20 @@ def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask, p2pla
                 w = w * outliers.robust_weights(
                     sq_dists, found, kind, tuning, scale_estimator=scale_est,
                     p2plane_sq=p2plane_sq, distance_type=dist_type, approximation=approx)
+            elif name == "generic_desc":
+                # GenericDescriptorOutlierFilter (OutlierFiltersImpl.cpp:304-369):
+                # the soft mode weighs by the descriptor over its maximum.
+                soft, larger, threshold = params
+                if ref_desc is None:
+                    raise ValueError("GenericDescriptorOutlierFilter needs a reference "
+                                     "grid built with desc_channel=<descName>")
+                if soft:
+                    g = torch.where(found, ref_desc, 0.0)
+                    w = w * g / torch.clamp(g.max(), min=1e-12)
+                elif larger:
+                    w = w * (ref_desc > threshold).to(torch.float32)
+                else:
+                    w = w * (ref_desc < threshold).to(torch.float32)
             elif name != "null":
                 raise ValueError(f"unknown outlier filter: {name}")
         return w
@@ -172,7 +191,8 @@ def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid:
            nn_ref: Optional[cuda_nn.NNRef] = None):
     """Correspondence search honouring ``cfg.matcher`` and ``cfg.knn``.
     Returns per-correspondence (src, src_nrm, slot_mask, ref_pts, ref_nrm,
-    d2, found), flattened to [N * knn], and per_point_found [N]."""
+    d2, found), flattened to [N * knn], per_point_found [N], and the matched
+    reference points' descriptor (None unless the grid carries one)."""
     if cfg.knn > 1:
         # kNN matches stack as correspondences (KDTreeMatcher knn > 1 ≙
         # stacked ErrorElements, MatchersImpl.cpp:118-133), on the
@@ -183,7 +203,8 @@ def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid:
         flat = idx.reshape(-1)
         return (src.repeat_interleave(k, dim=0), src_nrm.repeat_interleave(k, dim=0),
                 mask.repeat_interleave(k), ref_grid.points[flat], ref_grid.normals[flat],
-                d2.reshape(-1), ok.reshape(-1), ok.any(-1))
+                d2.reshape(-1), ok.reshape(-1), ok.any(-1),
+                None if ref_grid.desc is None else ref_grid.desc[flat])
     if cfg.matcher in KERNEL_MATCHERS:
         idx, d2 = cuda_nn.nn(src, ref_grid.points if nn_ref is None else nn_ref,
                              cfg.max_correspondence_dist)
@@ -195,7 +216,22 @@ def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid:
         idx, d2, found = hashgrid.query_nn(ref_grid, src, mask, cfg.max_correspondence_dist,
                                            max_per_bucket=cfg.max_per_bucket)
     return (src, src_nrm, mask, ref_grid.points[idx], ref_grid.normals[idx], d2, found,
-            found)
+            found, None if ref_grid.desc is None else ref_grid.desc[idx])
+
+
+def _vardist_gate(cfg: ICPConfig, source: PointCloud, d2: Tensor, found: Tensor,
+                  per_point_found: Tensor):
+    """Per-point maximum match distance (≙ KDTreeVarDistMatcher,
+    MatchersImpl.h:119-148): reject matches beyond the radius stored in the
+    reading's ``cfg.max_dist_field`` channel."""
+    if cfg.max_dist_field is None:
+        return found, per_point_found
+    vd = source.attr(cfg.max_dist_field)
+    if cfg.knn > 1:
+        found = found & (d2 <= (vd * vd).repeat_interleave(cfg.knn))
+        return found, found.reshape(-1, cfg.knn).any(-1)
+    found = found & (d2 <= vd * vd)
+    return found, found
 
 
 def reference_centroid(ref_grid: HashGrid) -> Tensor:
@@ -220,10 +256,11 @@ def _matched(cfg: ICPConfig, source: PointCloud, ref_grid: HashGrid, T: Tensor,
     ref_pts, ref_nrm, found, per_point_found, weights)."""
     src = se3.apply(T, source.xyz)
     src_nrm = se3.rotate(T, source.normals)
-    src, src_nrm, slot_mask, ref_pts, ref_nrm, d2, found, per_point_found = _match(
-        cfg, src, src_nrm, source.mask, ref_grid, nn_ref)
+    (src, src_nrm, slot_mask, ref_pts, ref_nrm, d2, found, per_point_found,
+     ref_desc) = _match(cfg, src, src_nrm, source.mask, ref_grid, nn_ref)
+    found, per_point_found = _vardist_gate(cfg, source, d2, found, per_point_found)
     pp = ((src - ref_pts) * ref_nrm).sum(-1)
-    w = _weights(cfg, d2, found, src_nrm, ref_nrm, slot_mask, pp * pp)
+    w = _weights(cfg, d2, found, src_nrm, ref_nrm, slot_mask, pp * pp, ref_desc)
     return src, src_nrm, ref_pts, ref_nrm, found, per_point_found, w
 
 
@@ -351,13 +388,15 @@ def register_clouds(source: PointCloud, reference: PointCloud, init_T: Tensor,
 
 
 def register_with_covariance(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
-                             cfg: ICPConfig = ICPConfig(), sensor_std: float = 0.01):
+                             cfg: ICPConfig = ICPConfig(), sensor_std: float = 0.01,
+                             poll_every: int = 0):
     """Register, then return (ICPResult, 6x6 solution covariance) evaluated
     at the converged pose over the final correspondence set, with the
-    solve's matcher (≙ PointToPlaneWithCov / PointToPointWithCov)."""
-    res = register(source, ref_grid, init_T, cfg)
-    src, _, _, ref_nrm, found, _, w = _matched(cfg, source, ref_grid, res.transform,
-                                               prepare_reference(cfg, ref_grid))
+    solve's matcher (≙ PointToPlaneWithCov / PointToPointWithCov).
+    ``poll_every`` as in ``register``."""
+    nn_ref = prepare_reference(cfg, ref_grid)
+    res = register(source, ref_grid, init_T, cfg, nn_ref=nn_ref, poll_every=poll_every)
+    src, _, _, ref_nrm, found, _, w = _matched(cfg, source, ref_grid, res.transform, nn_ref)
     src_c = torch.where(found[:, None], src - reference_centroid(ref_grid), 0.0)
     if cfg.minimizer == "point_to_plane":
         return res, minimizers.point_to_plane_covariance(src_c, ref_nrm, w, sensor_std)

@@ -6,7 +6,9 @@ an exact 30-bit packed voxel key (``rel = key - origin + 512`` per axis,
 a 1024-cell cube around the first insert's centroid); one int32 per slot
 holds the packed key, INT32_MAX marks an empty slot.  Sums live in one
 f32[C, 8] accumulator (sum_xyz | sum_normal | weight | pad), so fusing a
-scan is one ``index_add_``.
+scan is one ``index_add_``; descriptor channels (intensity, colors; ≙
+AggregatedVoxel::aggregateColor) sum in an optional f32[C, A] block with
+the same weights and come out as means in the ``cloud`` view.
 
 Differences from the JAX package, each kept to the same results:
   - the probing loop (``_assign_slots``) runs a fixed ``_MAX_ROUNDS``
@@ -25,6 +27,7 @@ tables, as the JAX package's immutable arrays allow).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,6 +48,8 @@ class VoxelMap:
     acc: Tensor      # f32[C, 8] = sum_xyz[3] | sum_normal[3] | weight | pad
     cell: Tensor     # f32 scalar voxel edge length (0 until first insert)
     dropped: Tensor  # f32 scalar — points lost to capacity/range overflow
+    sum_attrs: Optional[Tensor] = None  # f32[C, A] descriptor sums
+    attr_names: Tuple[str, ...] = ()
 
     @property
     def capacity(self) -> int:
@@ -57,6 +62,13 @@ class VoxelMap:
     @property
     def occupied(self) -> Tensor:
         return self.ptable != _EMPTY
+
+    def to(self, device) -> "VoxelMap":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, ptable=self.ptable.to(device), origin=self.origin.to(device),
+            acc=self.acc.to(device), cell=self.cell.to(device), dropped=self.dropped.to(device),
+            sum_attrs=None if self.sum_attrs is None else self.sum_attrs.to(device))
 
     @property
     def sum_xyz(self) -> Tensor:
@@ -78,7 +90,11 @@ class VoxelMap:
         nrm = self.acc[..., 3:6] / denom
         nlen = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
         nrm = torch.where(m[..., None] & (nlen > 1e-6), nrm / (nlen + 1e-12), 0.0)
-        return PointCloud(xyz=xyz, normals=nrm, mask=m)
+        attrs = None
+        if self.sum_attrs is not None:
+            attrs = torch.where(m[..., None], self.sum_attrs / denom, 0.0)
+        return PointCloud(xyz=xyz, normals=nrm, mask=m, attrs=attrs,
+                          attr_names=self.attr_names)
 
 
 def _round_up_pow2(n: int) -> int:
@@ -88,15 +104,19 @@ def _round_up_pow2(n: int) -> int:
     return p
 
 
-def empty(capacity: int, device="cuda") -> VoxelMap:
-    """An empty table with capacity rounded up to a power of two."""
+def empty(capacity: int, device="cuda", attr_names: Tuple[str, ...] = ()) -> VoxelMap:
+    """An empty table with capacity rounded up to a power of two, with
+    descriptor sums for ``attr_names``."""
     C = _round_up_pow2(max(capacity, 2))
     return VoxelMap(
         ptable=torch.full((C,), _EMPTY, dtype=torch.int32, device=device),
         origin=torch.zeros((3,), dtype=torch.int32, device=device),
         acc=torch.zeros((C, 8), dtype=torch.float32, device=device),
         cell=torch.zeros((), dtype=torch.float32, device=device),
-        dropped=torch.zeros((), dtype=torch.float32, device=device))
+        dropped=torch.zeros((), dtype=torch.float32, device=device),
+        sum_attrs=(torch.zeros((C, len(attr_names)), dtype=torch.float32, device=device)
+                   if attr_names else None),
+        attr_names=tuple(attr_names))
 
 
 def _pack_keys(key: Tensor, origin: Tensor, ok: Tensor):
@@ -148,12 +168,22 @@ def _assign_slots(ptable: Tensor, pk: Tensor, ok: Tensor):
 
 def insert(vmap: VoxelMap, scan: PointCloud, voxel_size, weights: Tensor = None) -> VoxelMap:
     """Fuse a scan (already in map frame, [N] lanes) into the voxel map:
-    exact weighted running means per voxel."""
-    if scan.attrs is not None:
-        raise NotImplementedError(
-            "descriptor channels are not ported yet (ROADMAP §1, slice 3)")
+    exact weighted running means per voxel.  Descriptor channels fuse with
+    the same weights; the map adopts the scan's channels on first contact
+    and afterwards takes the scan's channels in the map's order (a scan
+    that lacks one of them adds zeros), as the JAX package does."""
     C = vmap.capacity
     dev = vmap.device
+    sum_attrs, attr_names = vmap.sum_attrs, vmap.attr_names
+    if sum_attrs is None and scan.attrs is not None:
+        sum_attrs = torch.zeros((C, scan.attrs.shape[-1]), dtype=torch.float32, device=dev)
+        attr_names = scan.attr_names
+    scan_attrs = None
+    if sum_attrs is not None and scan.attrs is not None:
+        if tuple(scan.attr_names) == tuple(attr_names):
+            scan_attrs = scan.attrs
+        elif all(k in scan.attr_names for k in attr_names):
+            scan_attrs = scan.select(attr_names).attrs
     cell = (voxel_size.to(torch.float32) if isinstance(voxel_size, Tensor) else
             torch.full((), float(voxel_size), dtype=torch.float32, device=dev))
     w = (torch.ones((scan.capacity,), dtype=torch.float32, device=dev)
@@ -171,17 +201,23 @@ def insert(vmap: VoxelMap, scan: PointCloud, voxel_size, weights: Tensor = None)
                          torch.zeros_like(w)[:, None]], dim=-1)
     acc = torch.cat([vmap.acc, vmap.acc.new_zeros((1, 8))])
     acc.index_add_(0, idx, contrib)
+    if sum_attrs is not None:
+        a = (scan_attrs * w[:, None] if scan_attrs is not None
+             else w.new_zeros((scan.capacity, sum_attrs.shape[-1])))
+        sum_attrs = torch.cat([sum_attrs, sum_attrs.new_zeros((1, sum_attrs.shape[-1]))])
+        sum_attrs = sum_attrs.index_add_(0, idx, a)[:C]
     n_dropped = (scan.mask & (assigned < 0)).sum(dtype=torch.float32)
     return VoxelMap(ptable=pt, origin=origin, acc=acc[:C], cell=cell,
-                    dropped=vmap.dropped + n_dropped)
+                    dropped=vmap.dropped + n_dropped, sum_attrs=sum_attrs,
+                    attr_names=attr_names)
 
 
 def from_cloud(template: VoxelMap, cloud: PointCloud, weights: Tensor,
                cell: Tensor) -> VoxelMap:
-    """A fresh table (same capacity as ``template``) holding a weighted
-    point set — used to rebuild after an eviction or a rigid transform,
-    which invalidates every stored voxel key."""
-    fresh = empty(template.capacity, device=template.device)
+    """A fresh table (same capacity and channels as ``template``) holding a
+    weighted point set — used to rebuild after an eviction or a rigid
+    transform, which invalidates every stored voxel key."""
+    fresh = empty(template.capacity, device=template.device, attr_names=template.attr_names)
     return insert(fresh, cloud, cell, weights=weights)
 
 
@@ -222,7 +258,8 @@ def rekey(vmap: VoxelMap) -> VoxelMap:
 def _rebuild_keeping(vmap: VoxelMap, keep: Tensor) -> VoxelMap:
     cloud = vmap.cloud
     survivors = PointCloud(xyz=torch.where(keep[:, None], cloud.xyz, SENTINEL),
-                           normals=cloud.normals, mask=keep)
+                           normals=cloud.normals, mask=keep, attrs=cloud.attrs,
+                           attr_names=cloud.attr_names)
     out = from_cloud(vmap, survivors, torch.where(keep, vmap.weight, 0.0),
                      _cell_or_one(vmap))
     # Preserve the cumulative drop counter (observability).
@@ -279,7 +316,10 @@ def carve(vmap: VoxelMap, scan: PointCloud, sensor_origin: Tensor, carve_voxel_s
     means = vmap.cloud
     carved = occupancy_lookup(samples.reshape(-1, 3), sample_ok.reshape(-1), means.xyz,
                               means.mask, carve_voxel_size, table_size=1 << 16)
-    return dataclasses.replace(vmap, acc=torch.where(carved[:, None], 0.0, vmap.acc))
+    return dataclasses.replace(
+        vmap, acc=torch.where(carved[:, None], 0.0, vmap.acc),
+        sum_attrs=None if vmap.sum_attrs is None
+        else torch.where(carved[:, None], 0.0, vmap.sum_attrs))
 
 
 def overlap_mask(vmap_grid, other: PointCloud) -> Tensor:

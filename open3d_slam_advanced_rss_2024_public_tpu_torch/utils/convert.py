@@ -34,30 +34,41 @@ def voxel_map_from_jax(jmap, device="cuda") -> VoxelMap:
                                  jmap.dropped, device=device)
 
 
-def cloud_from_arrays(xyz, normals, mask, device="cuda") -> PointCloud:
+def cloud_from_arrays(xyz, normals, mask, device="cuda", attrs=None,
+                      attr_names=()) -> PointCloud:
     """The fields of a JAX ``PointCloud`` -> the port's, lane for lane."""
     return PointCloud(
         xyz=torch.as_tensor(np.array(xyz), dtype=torch.float32, device=device),
         normals=torch.as_tensor(np.array(normals), dtype=torch.float32, device=device),
-        mask=torch.as_tensor(np.array(mask), dtype=torch.bool, device=device))
+        mask=torch.as_tensor(np.array(mask), dtype=torch.bool, device=device),
+        attrs=None if attrs is None else torch.as_tensor(np.array(attrs), dtype=torch.float32,
+                                                         device=device),
+        attr_names=tuple(attr_names))
+
+
+def cloud_from_jax(jcloud, device="cuda") -> PointCloud:
+    """A JAX ``PointCloud`` object -> the port's, descriptor channels
+    included."""
+    return cloud_from_arrays(jcloud.xyz, jcloud.normals, jcloud.mask, device=device,
+                             attrs=jcloud.attrs, attr_names=jcloud.attr_names)
 
 
 def hash_grid_from_arrays(points, normals, perm, start, count, cell,
-                          device="cuda") -> HashGrid:
-    """The fields of a JAX ``HashGrid`` -> the port's (the same CSR layout;
-    the descriptor channel is not ported)."""
+                          device="cuda", desc=None) -> HashGrid:
+    """The fields of a JAX ``HashGrid`` -> the port's (the same CSR layout)."""
     def t(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
     return HashGrid(points=t(points, torch.float32), normals=t(normals, torch.float32),
                     perm=t(perm, torch.int32), start=t(start, torch.int32),
-                    count=t(count, torch.int32), cell=t(cell, torch.float32))
+                    count=t(count, torch.int32), cell=t(cell, torch.float32),
+                    desc=None if desc is None else t(desc, torch.float32))
 
 
 def hash_grid_from_jax(jgrid, device="cuda") -> HashGrid:
     """A JAX ``HashGrid`` object -> the port's."""
     return hash_grid_from_arrays(jgrid.points, jgrid.normals, jgrid.perm, jgrid.start,
-                                 jgrid.count, jgrid.cell, device=device)
+                                 jgrid.count, jgrid.cell, device=device, desc=jgrid.desc)
 
 
 def submap_from_jax(jsub, device="cuda"):

@@ -28,14 +28,19 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device(x, device, dtype=torch.float32) -> Tensor:
-    """Host array (or tensor) -> tensor on ``device`` without a stream
+    """Host array or tensor -> tensor on ``device``.  A host tensor goes to
+    a CUDA device through one pinned copy, without a stream
     synchronisation."""
+    to_cuda = torch.device(device).type == "cuda"
     if isinstance(x, Tensor):
-        return x.to(device=device, dtype=dtype)
-    t = torch.as_tensor(np.asarray(x), dtype=dtype)
-    if torch.device(device).type == "cuda":
+        t = x.to(dtype=dtype)
+    else:
+        t = torch.as_tensor(np.asarray(x), dtype=dtype)
+        if not to_cuda:
+            return t.clone()
+    if to_cuda and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
-    return t.clone()
+    return t.to(device=device)
 
 
 class HostCopy:

@@ -18,14 +18,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .pointcloud import PointCloud, make_cloud
+from .pointcloud import PointCloud, make_cloud, to_numpy
 from .timebuf import _quat_from_matrix, _quat_to_matrix
-
-
-def to_numpy(cloud: PointCloud):
-    """The valid points as host numpy arrays (xyz, normals)."""
-    mask = cloud.mask.cpu().numpy()
-    return cloud.xyz.cpu().numpy()[mask], cloud.normals.cpu().numpy()[mask]
 
 
 def save_pcd(path: str, cloud: PointCloud, binary: bool = True) -> None:

@@ -10,11 +10,17 @@ count back to the host).
 All methods accept leading batch dimensions (``[..., N, 3]``): the JAX
 package ``vmap``s over the K scans of a lag block, the port writes that
 batch dimension out.
+
+Descriptor channels (≙ DataPoints descriptors beyond normals: intensity,
+per-point time, colors; reference PointMatcher.h:327-409) live in one
+``attrs`` block f32[..., N, C] with a tuple of channel names, as in the JAX
+package: every gather, mask and segment sum carries all channels at once,
+and invalid lanes hold zeros.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -75,6 +81,39 @@ class PointCloud:
     def to(self, device) -> "PointCloud":
         return self.map(lambda t: t.to(device))
 
+    # -- descriptor channels ------------------------------------------------
+    def has_attr(self, name: str) -> bool:
+        return self.attrs is not None and name in self.attr_names
+
+    def attr(self, name: str) -> Tensor:
+        """One channel as f32[..., N] (≙ DataPoints::getDescriptorViewByName)."""
+        if not self.has_attr(name):
+            raise KeyError(f"no attr {name!r}; have {self.attr_names}")
+        return self.attrs[..., self.attr_names.index(name)]
+
+    def with_attr(self, name: str, values: Tensor) -> "PointCloud":
+        """Add or replace one descriptor channel (≙ DataPoints::addDescriptor);
+        zeros on invalid lanes."""
+        col = torch.where(self.mask, values.to(torch.float32), 0.0)[..., None]
+        if self.attrs is None:
+            return dataclasses.replace(self, attrs=col, attr_names=(name,))
+        if name in self.attr_names:
+            i = self.attr_names.index(name)
+            attrs = torch.cat([self.attrs[..., :i], col, self.attrs[..., i + 1:]], dim=-1)
+            return dataclasses.replace(self, attrs=attrs)
+        return dataclasses.replace(self, attrs=torch.cat([self.attrs, col], dim=-1),
+                                   attr_names=self.attr_names + (name,))
+
+    def without_attrs(self) -> "PointCloud":
+        return dataclasses.replace(self, attrs=None, attr_names=())
+
+    def select(self, names: Tuple[str, ...]) -> "PointCloud":
+        """Keep the channels ``names``, in that order."""
+        if not names:
+            return self.without_attrs()
+        attrs = torch.stack([self.attr(k) for k in names], dim=-1)
+        return dataclasses.replace(self, attrs=attrs, attr_names=tuple(names))
+
     def with_xyz(self, xyz: Tensor) -> "PointCloud":
         return dataclasses.replace(
             self, xyz=torch.where(self.mask[..., None], xyz, SENTINEL))
@@ -112,7 +151,8 @@ class PointCloud:
 
     def transform(self, T: Tensor) -> "PointCloud":
         """Rigid transform of points and normals (masked lanes stay
-        sentinel).  ``T`` is [4, 4] or batched like the cloud [..., 4, 4]."""
+        sentinel; descriptor channels are frame-independent and carried
+        through).  ``T`` is [4, 4] or batched like the cloud [..., 4, 4]."""
         from . import se3
 
         return dataclasses.replace(
@@ -134,11 +174,12 @@ def stack(clouds) -> PointCloud:
 
 
 def make_cloud(xyz, normals=None, mask=None, capacity: Optional[int] = None,
-               device=None) -> PointCloud:
+               device=None, attrs: Optional[Dict[str, object]] = None) -> PointCloud:
     """Build a PointCloud from host or device arrays, padding to capacity.
     ``device`` defaults to the device of ``xyz`` when it is a tensor, else
     ``cuda``.  Host arrays go up through pinned memory without a stream
-    synchronisation (``device.to_device``)."""
+    synchronisation (``device.to_device``).  ``attrs`` maps channel name ->
+    f32[N] column."""
     from .device import to_device
 
     if device is None:
@@ -151,20 +192,31 @@ def make_cloud(xyz, normals=None, mask=None, capacity: Optional[int] = None,
     normals = torch.zeros_like(xyz) if normals is None else to_device(normals, device)
     mask = (torch.ones((n,), dtype=torch.bool, device=device) if mask is None
             else to_device(mask, device, dtype=torch.bool))
+    attr_names: Tuple[str, ...] = tuple(attrs) if attrs else ()
+    block = None
+    if attr_names:
+        block = torch.stack([to_device(attrs[k], device).reshape(n) for k in attr_names], -1)
     pad = capacity - n
     if pad:
         xyz = torch.cat([xyz, xyz.new_full((pad, 3), SENTINEL)])
         normals = torch.cat([normals, normals.new_zeros((pad, 3))])
         mask = torch.cat([mask, mask.new_zeros((pad,))])
+        if block is not None:
+            block = torch.cat([block, block.new_zeros((pad, block.shape[-1]))])
     return PointCloud(xyz=torch.where(mask[:, None], xyz, SENTINEL),
-                      normals=torch.where(mask[:, None], normals, 0.0), mask=mask)
+                      normals=torch.where(mask[:, None], normals, 0.0), mask=mask,
+                      attrs=None if block is None else torch.where(mask[:, None], block, 0.0),
+                      attr_names=attr_names)
 
 
-def empty_cloud(capacity: int, device="cuda") -> PointCloud:
+def empty_cloud(capacity: int, device="cuda", attr_names: Tuple[str, ...] = ()) -> PointCloud:
     return PointCloud(
         xyz=torch.full((capacity, 3), SENTINEL, dtype=torch.float32, device=device),
         normals=torch.zeros((capacity, 3), dtype=torch.float32, device=device),
-        mask=torch.zeros((capacity,), dtype=torch.bool, device=device))
+        mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        attrs=(torch.zeros((capacity, len(attr_names)), dtype=torch.float32, device=device)
+               if attr_names else None),
+        attr_names=tuple(attr_names))
 
 
 def compact(cloud: PointCloud, capacity: int) -> PointCloud:
@@ -180,14 +232,32 @@ def compact(cloud: PointCloud, capacity: int) -> PointCloud:
     return cloud.take(take, valid)
 
 
+def _align_attrs(a: PointCloud, b: PointCloud) -> Tuple[PointCloud, PointCloud]:
+    """Restrict both clouds to their common descriptor channels (ordered as
+    in ``a``) so that concatenation is well defined."""
+    if a.attrs is None or b.attrs is None:
+        return a.without_attrs(), b.without_attrs()
+    if a.attr_names == b.attr_names:
+        return a, b
+    common = tuple(k for k in a.attr_names if k in b.attr_names)
+    return a.select(common), b.select(common)
+
+
 def concatenate(a: PointCloud, b: PointCloud, capacity: Optional[int] = None) -> PointCloud:
-    if a.attrs is not None or b.attrs is not None:
-        raise NotImplementedError(
-            "descriptor channels are not ported yet (ROADMAP §1, slice 3)")
     cap = capacity if capacity is not None else a.capacity + b.capacity
+    a, b = _align_attrs(a, b)
     merged = PointCloud(
         xyz=torch.cat([a.xyz, b.xyz], dim=-2),
         normals=torch.cat([a.normals, b.normals], dim=-2),
-        mask=torch.cat([a.mask, b.mask], dim=-1))
+        mask=torch.cat([a.mask, b.mask], dim=-1),
+        attrs=None if a.attrs is None else torch.cat([a.attrs, b.attrs], dim=-2),
+        attr_names=a.attr_names)
     return compact(merged, cap)
+
+
+def to_numpy(cloud: PointCloud):
+    """The valid points as host numpy arrays (xyz, normals): a host-only
+    view of dynamic size."""
+    mask = cloud.mask.cpu().numpy()
+    return cloud.xyz.cpu().numpy()[mask], cloud.normals.cpu().numpy()[mask]
 

@@ -241,11 +241,13 @@ for p in sorted((root / {PORT!r}).rglob("*.py")):
     parts = [x for x in rel.parts if x != "__init__"]
     importlib.import_module(".".join(parts))
 importlib.import_module("chip_smoke")
-# The command-line path's modules among them, none of which may fall back
-# on the JAX package's pure-Python copies.
+# The command-line path's and the ICP chain's modules among them, none of
+# which may fall back on the JAX package's pure-Python copies.
 for name in ("frontends.cli", "frontends.replay", "frontends.kitti", "native",
              "utils.lua_config", "utils.yaml_config", "utils.frames",
-             "models.map_initializer"):
+             "models.map_initializer", "ops.filters_extra", "ops.registration.chain",
+             "ops.registration.sequence", "ops.registration.inspectors",
+             "ops.registration.loggers", "ops.registration.parametrizable"):
     assert {PORT!r} + "." + name in sys.modules, name
 assert "yaml" not in sys.modules  # imported by the YAML loader when it loads
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
@@ -273,27 +275,26 @@ def test_mapper_without_cpu_device_raises_where_no_cuda():
 
 
 def test_unported_surface_raises_not_implemented():
-    # What stays unported raises, naming its ROADMAP item: the parts of ICP
-    # that need descriptor channels (item 17) and the sharded matcher (19).
-    # The hashed grid, GICP and the other minimizers, and carving, which
-    # raised here before, now run (``test_torch_registration.py``,
-    # ``test_torch_hashgrid.py``).
+    # What stays unported raises, naming its ROADMAP item: the sharded
+    # matcher (19).  The hashed grid, GICP and the other minimizers,
+    # carving, and the parts of ICP that need descriptor channels (item 17),
+    # which raised here before, now run (``test_torch_registration.py``,
+    # ``test_torch_hashgrid.py``, ``test_torch_chain.py``).
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models.submap_collection import (
         SubmapCollection)
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
 
-    for cfg, item in ((icp.ICPConfig(max_dist_field="maxSearchDist"), "item 17"),
-                      (icp.ICPConfig(outlier_chain=(("generic_desc", False, True, 0.5),)),
-                       "item 17"),
-                      (icp.ICPConfig(matcher="sharded"), "item 19"),
+    for cfg, item in ((icp.ICPConfig(matcher="sharded"), "item 19"),
                       (icp.ICPConfig(shard_axis="map"), "item 19")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
             icp.check_supported(cfg)
     for cfg in (icp.ICPConfig(matcher="hashgrid", minimizer="gicp", knn=3),
                 icp.ICPConfig(outlier_chain=(("robust", "cauchy", 1.0, "mad", "point2point",
-                                              float("inf")),), bound_max_rot=0.2)):
+                                              float("inf")),), bound_max_rot=0.2),
+                icp.ICPConfig(max_dist_field="maxSearchDist"),
+                icp.ICPConfig(outlier_chain=(("generic_desc", False, True, 0.5),))):
         icp.check_supported(cfg)
     with pytest.raises(ValueError):
         icp.check_supported(icp.ICPConfig(matcher="kdtree"))

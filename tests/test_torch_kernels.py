@@ -155,6 +155,32 @@ def test_tile_plan_plain_matches_jax_lists(tq, tp):
         np.testing.assert_array_equal(tl[0, row, :k].numpy(), np.asarray(jl)[row, :k])
 
 
+def test_tile_plan_plain_admits_no_empty_tile_at_infinite_max_dist():
+    # At maxDist inf (KDTreeMatcher's default) every gap passes, the
+    # infinite gap of an empty box too: a query tile that holds only
+    # sentinels, or a ref tile of padding, must still admit nothing, and
+    # every other tile pair is admitted.  K1's answers stay the twin's.
+    tq, tp = cuda_tiles.TQ, cuda_tiles.TP
+    p = _morton(_pts(40, 3 * tp + 17, 10.0))
+    p[tp:2 * tp] = 1.0e8                      # ref tile 1: sentinels only
+    q = _morton(_pts(41, 4 * tq, 10.0))
+    q[2 * tq:3 * tq] = 1.0e8                  # query tile 2: sentinels only
+    q[3 * tq + 5::3] = 1.0e8                  # query tile 3: mixed
+    tp_, tq_ = torch.from_numpy(p), torch.from_numpy(q)
+    center = cuda_tiles.centroid(tp_, tp_[:, 0].abs() < 1e7)
+    _, p_min, p_max = cuda_tiles.tile_prepare_plain(tp_[None], None, center[None])
+    tl, tc, _, _ = cuda_tiles.tile_plan_plain(tq_[None], None, center[None], p_min, p_max,
+                                              float("inf"))
+    assert tc[0].tolist() == [3, 3, 0, 3]
+    for row in (0, 1, 3):
+        assert tl[0, row, :3].tolist() == [0, 2, 3]
+    idx, d2 = cuda_nn.nn_plain(tq_, tp_, float("inf"))
+    ok = np.abs(q[:, 0]) < 1e7
+    ref = p[np.abs(p[:, 0]) < 1e7]
+    want = ((q[ok, None, :].astype(np.float64) - ref[None]) ** 2).sum(-1).min(-1)
+    np.testing.assert_allclose(d2[ok].numpy(), want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("case", ["random", "tied", "tied_across_blocks"])
 def test_merge_key_minimum_is_least_d2_then_lowest_index(case):
     # The sweep's blocks merge their winners by an atomic minimum on the
