@@ -41,8 +41,20 @@ and below the guess's error; an ``ICPSequence`` registers the 20 scans
 against a voxelised patch of the lap's world; each of the 28
 DataPointsFilters runs on a full-width scan with no host sync and on 8192
 lanes card against CPU; the chain runs card against CPU on one pair; and
-K1 is held against its twin at the chain's shapes.  Every phase prints one
-line; any failure ends the run
+K1 is held against its twin at the chain's shapes.  Then the rosbag path:
+the lap written under build/rosbag/ as a bag of 100 Ouster OS1-32 sweeps
+(1024 x 10, 32768 points in the Ouster 48-byte point layout, each point
+measured from its column's pose, with a u32 nanosecond time channel) and
+100 Hz drifting odometry; ``cli.main --dataset rosbag`` on it at the
+package defaults with deskewing on and 32768 lanes a scan, publishing the
+live visualization bundle (held to an ATE below 0.2 m and the odometry's;
+again without the bundle and without deskewing, for their cost and
+effect); K1 and K2 at its shapes; ``undistort`` on one sweep's time
+channel, card against CPU with no host sync; the first 24 sweeps through
+``OnlineRangeDataProcessor`` with the odometry of a body frame 60 degrees
+off and the calibration from a ``StaticTransformBuffer``; and the bundle
+reloaded and served by ``visualizer_node`` on a loopback port, with ``POST
+/initialpose``.  Every phase prints one line; any failure ends the run
 with a non-zero exit.  The second-to-last line is a JSON object
 with each kernel's launches on the main path (K1's two chain rows also as
 ``launches_chain``, each its own pass's), error against its twin, times and
@@ -2399,6 +2411,458 @@ def chain_kernel_rows(torch, c, last, launches):
     return rows
 
 
+# -- the rosbag path ----------------------------------------------------------
+BAG_RINGS = 32             # an Ouster OS1-32 ...
+BAG_COLUMNS = 1024         # ... in 1024x10 mode: 32768 points a 0.1 s sweep
+BAG_POINTS = BAG_RINGS * BAG_COLUMNS
+BAG_SWEEP = 0.1
+BAG_SWEEPS = 100           # the cli kitti lap's 100 poses
+BAG_ODOM_STEPS = 10        # /odom at 100 Hz
+BAG_FOV_DEG = 22.5         # the OS1's vertical field of view, +-22.5 degrees
+BAG_DIR = OUT / "rosbag"
+BAG_PATH = BAG_DIR / "os1_32_lap.bag"
+BAG_TOPIC = "/os_cloud_node/points"
+BAG_ODOM_TOPIC = "/odom"
+BAG_FRAME = "os_sensor"
+BAG_VIZ_DIR = OUT / "viz"
+BAG_VIZ_EVERY = 25
+BAG_ONLINE_SCANS = 24
+# The package defaults with two changes: deskewing on, and a scan's lanes
+# the sensor's 32768 points, so that every 0.1 m voxel of a scan fits.
+BAG_PARAMS = {"motion_compensation": {"is_undistort_scan": True},
+              "mapper": {"mapper_localizer": {"scan_to_map_registration": {
+                  "scan_processing": {"point_capacity": BAG_POINTS}}}}}
+# The Ouster OS1 point layout, 48 bytes a point: name, offset, numpy
+# type and PointField datatype code.
+OUSTER_FIELDS = [("x", 0, "f4", 7), ("y", 4, "f4", 7), ("z", 8, "f4", 7),
+                 ("intensity", 16, "f4", 7), ("t", 20, "u4", 6),
+                 ("reflectivity", 24, "u2", 4), ("ring", 26, "u2", 4),
+                 ("ambient", 28, "u2", 4), ("range", 32, "u4", 6)]
+
+
+def ouster_cloud_message(xyz, t_ns, ring, intensity, stamp: float) -> bytes:
+    """A sensor_msgs/PointCloud2 in the Ouster OS1 point layout (BAG_RINGS
+    rows of BAG_COLUMNS, 48-byte points), packed by hand."""
+    import struct
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag
+
+    dt = np.dtype({"names": [f[0] for f in OUSTER_FIELDS],
+                   "formats": [f[2] for f in OUSTER_FIELDS],
+                   "offsets": [f[1] for f in OUSTER_FIELDS], "itemsize": 48})
+    rec = np.zeros(xyz.shape[0], dt)
+    rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    rec["intensity"], rec["t"], rec["ring"] = intensity, t_ns, ring
+    rec["reflectivity"] = np.clip(intensity, 0, 65535).astype(np.uint16)
+    rec["ambient"] = 50
+    rec["range"] = (np.linalg.norm(xyz, axis=1) * 1000.0).astype(np.uint32)  # millimetres
+    body = rec.tobytes()
+    secs, nsecs = rosbag._split_ros_time(stamp)
+    out = bytearray(struct.pack("<III", 0, secs, nsecs))
+    out += struct.pack("<I", len(BAG_FRAME)) + BAG_FRAME.encode()
+    out += struct.pack("<III", BAG_RINGS, BAG_COLUMNS, len(OUSTER_FIELDS))
+    for name, off, _, code in OUSTER_FIELDS:
+        out += struct.pack("<I", len(name)) + name.encode() + struct.pack("<IBI", off, code, 1)
+    out += struct.pack("<BII", 0, 48, 48 * BAG_COLUMNS)
+    out += struct.pack("<I", len(body)) + body + struct.pack("<B", 1)
+    return bytes(out)
+
+
+def bag_odometry(gt):
+    """The lap's odometry at the sweep ends, drifting as ``slam loop``'s does
+    (1.5 cm and 2 mrad a step)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
+
+    return synthetic.perturb_odometry(gt[:BAG_SWEEPS], drift_per_step=0.015,
+                                      yaw_drift_per_step=0.002, seed=3)
+
+
+def rosbag_write(torch, dev, gt):
+    """Phase ``rosbag write``: the ``cli kitti`` world and lap as a bag of
+    BAG_SWEEPS Ouster OS1-32 sweeps (1024 x 10, 32768 points) on BAG_TOPIC
+    and BAG_ODOM_STEPS odometry messages a sweep on BAG_ODOM_TOPIC.  Sweep
+    k ends at the lap's pose k, stamped (k + 1) x 0.1 s, and covers the
+    motion from pose k - 1; the robot stands still through the first sweep,
+    as a recording starts (the deskewing twist comes from the odometry of
+    earlier sweeps, so a first sweep in motion would enter the map skewed).
+    Each point is measured from the sensor pose of its column's time,
+    interpolated along the lap (``se3.interpolate``), and carries that time
+    as u32 nanoseconds.  Then the whole bag is read and decoded on the
+    host.  Returns the odometry at the sweep ends."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag, synthetic
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import se3
+
+    BAG_DIR.mkdir(parents=True, exist_ok=True)
+    world = kitti_world(dev)
+    poses, odom = gt[:BAG_SWEEPS], bag_odometry(gt)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    G = torch.as_tensor(np.stack(poses), device=dev)
+    O = torch.as_tensor(np.stack(odom), device=dev)
+    col_alpha = torch.arange(BAG_COLUMNS, device=dev, dtype=torch.float32) / BAG_COLUMNS
+    odo_alpha = torch.arange(BAG_ODOM_STEPS, device=dev, dtype=torch.float32) / BAG_ODOM_STEPS
+    t0 = time.perf_counter()
+    w = rosbag.RosbagWriter(str(BAG_PATH))
+    shift = []
+    for k in range(len(poses)):
+        stamp, j = BAG_SWEEP * (k + 1), max(k - 1, 0)
+        sweep = se3.interpolate(O[j].expand(BAG_ODOM_STEPS, 4, 4),
+                                O[k].expand(BAG_ODOM_STEPS, 4, 4), odo_alpha).cpu().numpy()
+        for m in range(BAG_ODOM_STEPS):
+            w.write_odometry(BAG_ODOM_TOPIC, sweep[m], stamp - BAG_SWEEP * (1 - m / BAG_ODOM_STEPS),
+                             child_frame_id=BAG_FRAME)
+        cols = se3.interpolate(G[j].expand(BAG_COLUMNS, 4, 4), G[k].expand(BAG_COLUMNS, 4, 4),
+                               col_alpha)
+        mid = cols[BAG_COLUMNS // 2]
+        scan = synthetic.render_scan(world, mid.cpu().numpy(), gen, max_range=KITTI_RANGE,
+                                     n_points=BAG_POINTS, noise=0.01)
+        if int(scan.mask.sum()) != BAG_POINTS:
+            fail(f"rosbag write: sweep {k} holds {int(scan.mask.sum())} points within "
+                 f"{KITTI_RANGE} m, not {BAG_POINTS}")
+        # The column from the azimuth (a clockwise sweep from azimuth pi, as
+        # motion_compensation.compute_phase has it), the point from its
+        # column's pose.
+        az = torch.atan2(scan.xyz[:, 1], scan.xyz[:, 0])
+        col = ((math.pi - az) / (2 * math.pi) * BAG_COLUMNS).long().clamp(0, BAG_COLUMNS - 1)
+        world_xyz = se3.apply(mid, scan.xyz)
+        inv = se3.inverse(cols)[col]
+        xyz = (inv[:, :3, :3] @ world_xyz[:, :, None])[:, :, 0] + inv[:, :3, 3]
+        end_xyz = se3.apply(se3.inverse(G[k]), world_xyz)
+        shift.append(float(torch.linalg.vector_norm(xyz - end_xyz, dim=1).max()))
+        elev = torch.rad2deg(torch.atan2(xyz[:, 2], torch.linalg.vector_norm(xyz[:, :2], dim=1)))
+        ring = ((elev + BAG_FOV_DEG) / (2 * BAG_FOV_DEG) * (BAG_RINGS - 1)).round()
+        ring = ring.clamp(0, BAG_RINGS - 1).long()
+        order = torch.argsort(ring * BAG_COLUMNS + col, stable=True)
+        xyz, col, ring = xyz[order].cpu().numpy(), col[order].cpu().numpy(), ring[order].cpu().numpy()
+        t_ns = (col * (BAG_SWEEP * 1e9 / BAG_COLUMNS)).astype(np.uint32)
+        intensity = (3000.0 / (1.0 + np.linalg.norm(xyz, axis=1))).astype(np.float32)
+        w.write(BAG_TOPIC, "sensor_msgs/PointCloud2", stamp,
+                ouster_cloud_message(xyz, t_ns, ring, intensity, stamp))
+    w.write_odometry(BAG_ODOM_TOPIC, odom[-1], BAG_SWEEP * len(poses), child_frame_id=BAG_FRAME)
+    w.close()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = list(rosbag.rosbag_sequence(str(BAG_PATH), BAG_TOPIC,
+                                         odometry_topic=BAG_ODOM_TOPIC, device="cpu"))
+    read_s = time.perf_counter() - t0
+    n = len(poses)
+    phase("rosbag write", sweeps=n, points_per_sweep=BAG_POINTS, point_step=48,
+          odometry_hz=BAG_ODOM_STEPS / BAG_SWEEP, bag_bytes=BAG_PATH.stat().st_size,
+          write_s=f"{write_s:.2f}", read_decode_s=f"{read_s:.2f}",
+          read_decode_ms_per_sweep=f"{read_s / n * 1e3:.2f}",
+          sweep_shift_max_m=f"{max(shift):.4f}")
+    first = frames[0].scan if frames else None
+    if len(frames) != n or first.attr_names != ("intensity", "t") or \
+            int(first.mask.sum()) != BAG_POINTS:
+        fail(f"rosbag write: the bag reads back as {len(frames)} frames, the first with "
+             f"channels {None if first is None else first.attr_names}")
+    t_max = float(first.attr("t").max())
+    if not abs(t_max - BAG_SWEEP * (BAG_COLUMNS - 1) / BAG_COLUMNS) < 1e-6:
+        fail(f"rosbag write: the time channel reads back to {t_max} s")
+    return odom
+
+
+def run_bag_cli(torch, params, out, viz_dir=None):
+    """The command line on the bag with ``params`` (written to a JSON file
+    under build/): (exit code, the SlamWrapper, ms a scan, counting)."""
+    params_file = OUT / f"rosbag_params_{out.name}.json"
+    params_file.write_text(json.dumps(params))
+    argv = ["--dataset", "rosbag", "--bag", str(BAG_PATH), "--cloud-topic", BAG_TOPIC,
+            "--odometry-topic", BAG_ODOM_TOPIC, "--params", str(params_file),
+            "--output", str(out)]
+    if viz_dir is not None:
+        argv += ["--viz-dir", str(viz_dir), "--viz-every", str(BAG_VIZ_EVERY)]
+    counting = _Counting()
+    t0 = time.perf_counter()
+    try:
+        rc, _, _ = run_cli(argv)
+        torch.cuda.synchronize()
+    finally:
+        counting.restore()
+    wall = time.perf_counter() - t0
+    slam = counting.slams[0]
+    return rc, slam, wall / max(len(slam.trajectory_poses), 1) * 1e3, counting
+
+
+def cli_rosbag(torch, dev, gt, odom):
+    """Phase ``cli rosbag``, this slice's path: ``cli.main --dataset rosbag``
+    on the bag at the package defaults with deskewing on and 32768 lanes a
+    scan, publishing the live visualization bundle every BAG_VIZ_EVERY
+    scans.  The launch counts are set to 0 just before the run and read
+    just after.  Then the same run without the bundle (its cost) and with
+    deskewing off (its effect, no bar).  Returns (the SlamWrapper, the
+    launches of the run, the counts apart)."""
+    import copy
+    import shutil
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn,
+                                                                    cuda_tiles, filters)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+
+    sp = load_parameters(BAG_PARAMS).mapper.mapper_localizer.scan_to_map_registration \
+        .scan_processing
+    first = next(iter(rosbag.rosbag_sequence(str(BAG_PATH), BAG_TOPIC,
+                                             odometry_topic=BAG_ODOM_TOPIC, device=dev))).scan
+    voxels = int(filters.voxel_downsample(first, sp.voxel_size, first.capacity).mask.sum())
+    shutil.rmtree(BAG_VIZ_DIR, ignore_errors=True)
+    out = OUT / "cli_rosbag"
+    cuda_nn.reset_launches()
+    cuda_moments.reset_launches()
+    cuda_tiles.reset_launches()
+    rc, slam, ms, counting = run_bag_cli(torch, BAG_PARAMS, out, viz_dir=BAG_VIZ_DIR)
+    launches = {"nn": cuda_nn.launches, "moments": cuda_moments.launches,
+                "tile_prepare": cuda_tiles.prepare_launches,
+                "tile_plan": cuda_tiles.plan_launches}
+    counts = counting.counts
+    n = BAG_SWEEPS
+    truth, odo = np.stack(gt[:BAG_SWEEPS]), np.stack(odom)
+    est = np.stack(slam.trajectory_poses) if slam.trajectory_poses else np.zeros((0, 4, 4))
+    ate = io.ate_rmse(est, truth[:len(est)]) if len(est) >= 3 else float("inf")
+    ate_odom = io.ate_rmse(odo, truth)
+    rows = np.loadtxt(out / "slam_poses", ndmin=2) if (out / "slam_poses").exists() else []
+    map_points = int(io.load_pcd(str(out / "map.pcd"), device=dev).mask.sum())
+    graph = json.loads((out / "pose_graph.json").read_text())
+    _, plain_slam, plain_ms, _ = run_bag_cli(torch, BAG_PARAMS, OUT / "cli_rosbag_plain")
+    skewed = copy.deepcopy(BAG_PARAMS)
+    skewed["motion_compensation"]["is_undistort_scan"] = False
+    _, skew_slam, skew_ms, _ = run_bag_cli(torch, skewed, OUT / "cli_rosbag_skewed")
+    skew_est = np.stack(skew_slam.trajectory_poses)
+    ate_skew = io.ate_rmse(skew_est, truth[:len(skew_est)])
+    phase("cli rosbag", scans=n, trajectory_entries=len(est), tum_rows=len(rows),
+          voxels_first_scan=voxels, lanes=sp.point_capacity, ms_per_scan=f"{ms:.3f}",
+          ms_per_scan_no_viz=f"{plain_ms:.3f}", viz_ms_per_scan=f"{ms - plain_ms:.3f}",
+          mapper_ms=f"{counting.host_ms['mapper']:.1f}",
+          submaps=len(slam.mapper.submaps.submaps), closures=slam.loop_closure_count,
+          ate_slam_m=f"{ate:.4f}", ate_odometry_m=f"{ate_odom:.4f}",
+          ate_no_deskew_m=f"{ate_skew:.4f}", ms_per_scan_no_deskew=f"{skew_ms:.3f}",
+          nn_launches=launches["nn"], nn_launches_mapper=counts["mapper_nn"],
+          moments_launches=launches["moments"],
+          moments_launches_mapper=counts["mapper_moments"],
+          tile_prepare_launches=launches["tile_prepare"],
+          tile_plan_launches=launches["tile_plan"], map_points=map_points,
+          graph_edges=len(graph["odometry_constraints"]),
+          viz_publishes=len(list(BAG_VIZ_DIR.glob("*.p*"))))
+    if rc != 0 or len(est) != n or len(rows) != n or not np.isfinite(est).all():
+        fail(f"cli rosbag: exit code {rc}, {len(est)} poses and {len(rows)} TUM rows for "
+             f"{n} sweeps")
+    if voxels > sp.point_capacity:
+        fail(f"cli rosbag: the first scan holds {voxels} voxels in {sp.point_capacity} lanes")
+    if min(launches.values()) <= 0 or counts["mapper_nn"] <= 0 or counts["mapper_moments"] <= 0:
+        fail(f"cli rosbag: launches {launches}, apart {counts}")
+    if not (ate < 0.2 and ate < ate_odom):
+        fail(f"cli rosbag: ATE {ate:.4f} m against the odometry's {ate_odom:.4f} m (bar 0.2 m)")
+    if map_points <= 10000 or len(plain_slam.trajectory_poses) != n:
+        fail(f"cli rosbag: map.pcd reloads with {map_points} points, the run without the "
+             f"bundle wrote {len(plain_slam.trajectory_poses)} poses")
+    return slam, launches, counts
+
+
+def bag_kernel_rows(torch, dev, slam, counts):
+    """K1 and K2 against their plain versions at the shapes ``cli rosbag``
+    gives them: ``K1 nn mapper rosbag``, the last sweep preprocessed at
+    32768 lanes, at its refined pose, against the final submap's
+    65536-point patch; ``K2 moments mapper rosbag``, that sweep's voxels
+    [1, 32768] at the normals' 0.5 m.  Returns the rows of the kernels
+    line."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import pipeline, scan_processing
+
+    pcfg = slam.mapper.pipe_cfg
+    last = None
+    for last in rosbag.rosbag_sequence(str(BAG_PATH), BAG_TOPIC, device=dev):
+        pass
+    pose = torch.as_tensor(slam.trajectory_poses[-1], device=dev)
+    _, match = pipeline._preprocess(last.scan, pcfg)
+    _, grid = scan_processing.crop_submap_and_index(
+        slam.mapper.submaps.active_submap.map.cloud, pose[:3, 3], min_radius=0.0,
+        max_radius=pcfg.crop_max_radius + pcfg.block_ref_margin,
+        match_dist=pcfg.icp.max_correspondence_dist, capacity=pcfg.map_patch_capacity,
+        build_hash=False)
+    rows = [nn_shape_row(torch, "mapper rosbag", match.transform(pose).xyz.contiguous(),
+                         grid.points.contiguous(), pcfg.icp.max_correspondence_dist,
+                         counts["mapper_nn"])]
+    blk = scan_processing.preprocess_scan(last.scan, pcfg.crop_min_radius, pcfg.crop_max_radius,
+                                          pcfg.scan_voxel_size, 1.0, pcfg.scan_capacity,
+                                          estimate_scan_normals=False)
+    rows.append(moments_shape_row(torch, "mapper rosbag", blk.map(lambda t: t[None]),
+                                  counts["mapper_moments"]))
+    return rows
+
+
+def undistort_t_channel(torch, dev, gt):
+    """Phase ``undistort t channel``: ``motion_compensation.undistort`` on
+    the bag's second sweep, decoded with its time channel, under the lap's
+    motion over that sweep: card against CPU, no host sync, device time."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import motion_compensation
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import se3
+
+    frames = rosbag.rosbag_sequence(str(BAG_PATH), BAG_TOPIC, device=dev)
+    next(frames)  # the first sweep stands still
+    scan = next(frames).scan
+    T0, T1 = (torch.as_tensor(g, device=dev) for g in gt[:2])
+    twist = se3.se3_log(se3.inverse(T0) @ T1)
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        out = motion_compensation.undistort(scan, twist)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in syncs if "called a synchronizing CUDA operation" in str(w.message)]
+    cpu = motion_compensation.undistort(scan.to("cpu"), twist.cpu())
+    m = scan.mask.cpu()
+    err = float((out.xyz.cpu() - cpu.xyz)[m].abs().max())
+    moved = float(torch.linalg.vector_norm(out.xyz - scan.xyz, dim=1)[scan.mask].max())
+    ms = cuda_ms(lambda: motion_compensation.undistort(scan, twist))
+    phase("undistort t channel", lanes=scan.capacity, valid=int(m.sum()),
+          max_abs_err_m=f"{err:.3g}", host_syncs=len(syncs), max_shift_m=f"{moved:.4f}",
+          ms=f"{ms:.4f}")
+    if syncs:
+        fail(f"undistort t channel: {len(syncs)} host syncs")
+    if not err <= 1e-4 or not moved > 0.1:
+        fail(f"undistort t channel: card against CPU {err} m, largest shift {moved} m")
+
+
+def run_online(dev, frames, T_cal):
+    """The frames through ``OnlineRangeDataProcessor`` on a fresh card
+    ``SlamWrapper``, one sweep at a time, as a sensor feeds a processor
+    that keeps up: the deskewing twist comes from the newest odometry in
+    the buffer, which must not run ahead of the sweep.  Returns (the
+    SlamWrapper, whether the calibration was set after the first cloud,
+    wall seconds)."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends.online import (
+        OnlineRangeDataProcessor)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.frames import (
+        StaticTransformBuffer)
+
+    tf = StaticTransformBuffer()
+    tf.set_transform(BAG_FRAME, "base", T_cal)
+    slam = SlamWrapper(load_parameters(BAG_PARAMS), device=dev)
+    slam.set_initial_transform(frames[0].odom_pose)
+    proc = OnlineRangeDataProcessor(slam, tf, odometry_frame="base")
+    calibrated_after_first = False
+    proc.start_processing()
+    t0 = time.perf_counter()
+    try:
+        for k, f in enumerate(frames):
+            deadline = time.perf_counter() + 60.0
+            while len(slam.trajectory_poses) < k and time.perf_counter() < deadline:
+                time.sleep(0.002)
+            proc.odometry_callback(f.odom_pose @ T_cal, f.time)
+            while not proc.cloud_callback(f.scan, f.time, frame_id=BAG_FRAME):
+                time.sleep(0.002)
+            if k == 0:
+                calibrated_after_first = proc.calibration_set
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and len(slam.trajectory_poses) < len(frames):
+            time.sleep(0.01)
+        slam.finish_processing()
+    finally:
+        proc.stop_processing()
+    return slam, calibrated_after_first, time.perf_counter() - t0
+
+
+def online_bag(torch, dev, gt, odom):
+    """Phase ``online bag``: the bag's first BAG_ONLINE_SCANS sweeps through
+    ``OnlineRangeDataProcessor`` on a ``SlamWrapper`` on the card, workers
+    started and stopped, deskewing on, with the odometry of a body frame 60
+    degrees from the sensor and 0.22 m off
+    (``tests/test_online_calibration.py:81-121``) and the calibration from a
+    ``StaticTransformBuffer``; ``ms_per_scan`` is a sweep's latency.  Then
+    the same run with the deskewing twist taken in the body frame, as the
+    JAX package takes it (``ate_body_frame_twist_m``, no bar)."""
+    import itertools
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import rosbag
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import motion_compensation
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+
+    n = BAG_ONLINE_SCANS
+    frames = list(itertools.islice(rosbag.rosbag_sequence(
+        str(BAG_PATH), BAG_TOPIC, odometry_topic=BAG_ODOM_TOPIC, device=dev), n))
+    c, s = math.cos(math.pi / 3), math.sin(math.pi / 3)
+    T_cal = np.array([[c, -s, 0, 0.2], [s, c, 0, -0.1], [0, 0, 1, 0], [0, 0, 0, 1]],
+                     np.float32)  # cloud <- odometry body
+    slam, calibrated_after_first, wall = run_online(dev, frames, T_cal)
+    est = np.stack(slam.trajectory_poses)
+    ate = io.ate_rmse(est, np.stack(gt[:len(est)]))
+    ate_odom = io.ate_rmse(np.stack(odom[:n]), np.stack(gt[:n]))
+    cloud_frame_twist = motion_compensation.estimate_twist_from_buffer
+    motion_compensation.estimate_twist_from_buffer = \
+        lambda buffer, duration, num_poses, calibration=None: cloud_frame_twist(
+            buffer, duration, num_poses)
+    try:
+        body, _, _ = run_online(dev, frames, T_cal)
+    finally:
+        motion_compensation.estimate_twist_from_buffer = cloud_frame_twist
+    body_est = np.stack(body.trajectory_poses)
+    phase("online bag", scans=n, trajectory_entries=len(est),
+          calibration_set_after_first=calibrated_after_first,
+          calibration_err=f"{np.abs(slam.mapper.calibration - T_cal).max():.2e}",
+          wall_s=f"{wall:.2f}", ms_per_scan=f"{wall / n * 1e3:.3f}",
+          ate_slam_m=f"{ate:.4f}", ate_odometry_m=f"{ate_odom:.4f}",
+          ate_body_frame_twist_m=f"{io.ate_rmse(body_est, np.stack(gt[:len(body_est)])):.4f}",
+          workers_alive=sum(t.is_alive() for t in slam._workers))
+    if not calibrated_after_first or not np.abs(slam.mapper.calibration - T_cal).max() < 1e-5:
+        fail("online bag: the calibration was not installed after the first cloud")
+    if len(est) != n or not np.isfinite(est).all() or slam._workers:
+        fail(f"online bag: {len(est)} poses for {n} sweeps, {len(slam._workers)} workers left")
+    if not ate < ate_odom:
+        fail(f"online bag: ATE {ate:.4f} m against the odometry's {ate_odom:.4f} m")
+
+
+def viz_bundle(torch, dev):
+    """Phase ``viz bundle``: the files ``cli rosbag`` published reload;
+    ``visualizer_node.serve`` on a free loopback port serves the index and
+    one file; ``POST /initialpose`` sets a card SlamWrapper's pose."""
+    import urllib.request
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import visualizer_node
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.map_initializer import (
+        pose_from_config)
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
+
+    counts = {}
+    for name in ("submaps_colored.ply", "trajectory_tube.pcd", "best_guess_tube.pcd",
+                 "submap_origins.ply"):
+        path = BAG_VIZ_DIR / name
+        if not path.exists():
+            fail(f"viz bundle: {name} was not written")
+        counts[name.split(".")[0]] = int(io.load_cloud(str(path), device="cpu").count())
+    slam = SlamWrapper(device=dev)
+    server = visualizer_node.serve(str(BAG_VIZ_DIR), port=0, background=True, slam=slam)
+    try:
+        port = server.server_address[1]
+        index = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10).read().decode()
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/submap_origins.ply",
+                                      timeout=10).read()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/initialpose",
+            data=json.dumps({"x": 3.0, "y": -2.0, "z": 1.0, "yaw": 30.0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            status = r.status
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    class _Pose:
+        x, y, z, roll, pitch, yaw = 3.0, -2.0, 1.0, 0.0, 0.0, 30.0
+    pose_err = float(np.abs(slam.mapper.map_to_range_sensor - pose_from_config(_Pose)).max())
+    phase("viz bundle", **{f"{k}_points": v for k, v in counts.items()}, http_port=port,
+          index_bytes=len(index), served_bytes=len(body), initialpose_status=status,
+          initialpose_err=f"{pose_err:.2e}")
+    if min(counts.values()) <= 0 or "submaps_colored.ply" not in index:
+        fail(f"viz bundle: {counts}, index lists {index.count('<li>')} files")
+    if body != (BAG_VIZ_DIR / "submap_origins.ply").read_bytes():
+        fail("viz bundle: the served file differs from the bundle's")
+    if status != 200 or not pose_err <= 1e-6:
+        fail(f"viz bundle: POST /initialpose answered {status}, pose off by {pose_err}")
+
+
 def main() -> None:
     import torch
 
@@ -2546,10 +3010,22 @@ def main() -> None:
     phase("chain phases seconds", **seconds,
           total=f"{sum(float(v) for v in seconds.values()):.1f}")
 
+    # -- 10. the rosbag path: bag replay, deskewing, online, the viz bundle -----
+    seconds = {}
+    bag_odom = timed("write", rosbag_write, torch, dev, kitti_gt)
+    bag_slam, bag_launches, bag_counts = timed("cli", cli_rosbag, torch, dev, kitti_gt, bag_odom)
+    new_rows += timed("k1_k2_rows", bag_kernel_rows, torch, dev, bag_slam, bag_counts)
+    timed("undistort", undistort_t_channel, torch, dev, kitti_gt)
+    timed("online", online_bag, torch, dev, kitti_gt, bag_odom)
+    timed("viz", viz_bundle, torch, dev)
+    phase("rosbag phases seconds", **seconds,
+          total=f"{sum(float(v) for v in seconds.values()):.1f}")
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_slam_loop"] = slam_launches[row["name"]]
         row["launches_cli_kitti"] = cli_launches[row["name"]]
+        row["launches_cli_rosbag"] = bag_launches[row["name"]]
     kernels += new_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,8 @@ is given, and raises where no CUDA device exists.
       --dataset kitti --kitti-root /data/kitti --sequence 00 --eval-ate
   python -m ... --dataset synthetic --steps 100 --output /tmp/run1
   python -m ... --dataset pcd-dir --pcd-dir scans/ --odometry odom.tum
+  python -m ... --dataset rosbag --bag run.bag --cloud-topic /points \\
+      --odometry-topic /odom --viz-dir /tmp/viz
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--initial-map", help="PCD prior map (localization mode)")
     ap.add_argument("--eval-ate", action="store_true",
                     help="report ATE vs ground truth when available")
-    ap.add_argument("--viz-dir", help="write the live visualization bundle here "
-                    "during the run (not ported yet)")
+    ap.add_argument("--viz-dir", help="write the live visualization bundle "
+                    "here during the run (serve it with "
+                    "frontends.visualizer_node)")
     ap.add_argument("--viz-every", type=int, default=25,
                     help="publish the bundle every N frames")
     ap.add_argument("--device", default="cuda",
@@ -81,18 +84,14 @@ def load_params(path, search_dirs=()):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.dataset == "rosbag":
-        raise NotImplementedError("the rosbag frontend is not ported yet (ROADMAP §1 item 18)")
-    if args.viz_dir:
-        raise NotImplementedError(
-            "the live visualization bundle is not ported yet (ROADMAP §1 item 18)")
     from ..utils import io as io_utils
     from ..utils.device import resolve_device
     from . import replay as replay_mod
 
     device = resolve_device(args.device)
     params = load_params(args.params, args.params_search_dir)
-    runner = replay_mod.ReplayRunner(params, output_dir=args.output, device=device)
+    runner = replay_mod.ReplayRunner(params, output_dir=args.output, device=device,
+                                     viz_dir=args.viz_dir, viz_every=args.viz_every)
 
     if args.initial_map:
         from ..models.map_initializer import SlamMapInitializer
@@ -120,6 +119,11 @@ def main(argv=None) -> int:
         frames = kitti.kitti_sequence(args.kitti_root, args.sequence,
                                       max_frames=args.max_frames, device=device)
         gt = kitti.kitti_ground_truth(args.kitti_root, args.sequence)
+    elif args.dataset == "rosbag":
+        from . import rosbag as rosbag_mod
+
+        frames = rosbag_mod.rosbag_sequence(args.bag, args.cloud_topic,
+                                            odometry_topic=args.odometry_topic, device=device)
     else:
         frames = replay_mod.pcd_directory_sequence(args.pcd_dir, trajectory_file=args.odometry,
                                                    device=device)

@@ -59,16 +59,25 @@ def accumulate_range_data(frames: Iterable[ReplayFrame],
 
 class ReplayRunner:
     """``device`` as ``SlamWrapper`` takes it: ``cuda`` unless the caller
-    asks for the CPU."""
+    asks for the CPU.  With ``viz_dir``, the live visualization bundle is
+    published there every ``viz_every`` frames: the tables' copies are
+    enqueued on this thread and rendered on the publisher's own."""
 
     def __init__(self, params: Optional[SlamParameters] = None,
                  output_dir: Optional[str] = None, print_progress: bool = True,
-                 num_accumulated_range_data: int = 1, device=None):
+                 num_accumulated_range_data: int = 1, device=None,
+                 viz_dir: Optional[str] = None, viz_every: int = 25):
         self.slam = SlamWrapper(params, device=device)
         self.output_dir = output_dir
         self.print_progress = print_progress
         self.num_accumulated_range_data = num_accumulated_range_data
         self.timer = Timer("scan")
+        self.viz_every = max(int(viz_every), 1)
+        self._viz = None
+        if viz_dir:
+            from .viz import LiveVisualizationPublisher
+
+            self._viz = LiveVisualizationPublisher(viz_dir)
 
     def run(self, frames: Iterable[ReplayFrame],
             initial_pose: Optional[np.ndarray] = None) -> SlamWrapper:
@@ -83,6 +92,8 @@ class ReplayRunner:
                 slam.set_initial_transform(init)
             with self.timer:
                 slam.use_pair_for_registration(frame.scan, frame.odom_pose, frame.time)
+            if self._viz is not None and i % self.viz_every == 0:
+                self._viz.tick(slam, wait=False)
             if self.print_progress and i % 25 == 0:
                 p = slam.mapper.map_to_range_sensor[:3, 3]
                 print(f"[replay] frame {i:5d} t={frame.time:8.2f} "
@@ -90,6 +101,8 @@ class ReplayRunner:
                       f"avg {self.timer.avg_ms:.1f} ms/scan "
                       f"submaps={len(slam.mapper.submaps.submaps)} "
                       f"lc={slam.loop_closure_count}", file=sys.stderr)
+        if self._viz is not None:
+            self._viz.close()
         slam.finish_processing()
         if self.output_dir:
             os.makedirs(self.output_dir, exist_ok=True)

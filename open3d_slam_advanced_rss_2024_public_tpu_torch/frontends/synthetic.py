@@ -1,10 +1,9 @@
 """Synthetic LiDAR worlds and trajectories.
 
-Counterpart of ``cluttered_world``, ``render_scan``, ``loop_trajectory``,
-``straight_trajectory`` and ``perturb_odometry`` of the JAX package's
-``frontends/synthetic.py``: a ground plane with randomly sized and rotated
-boxes, cylinders and spheres, scanned by a virtual LiDAR along a circular
-loop or a straight line, with a drifting odometry source.  The world is drawn on the host from
+Counterpart of the JAX package's ``frontends/synthetic.py``: a corridor
+with walls, floor, ceiling and pillars, or a ground plane with randomly
+sized and rotated boxes, cylinders and spheres, scanned by a virtual LiDAR
+along a circular loop or a straight line, with a drifting odometry source.  The world is drawn on the host from
 a numpy seed; scans are drawn on the world's device from a
 ``torch.Generator``.  The random bits differ from the JAX package's; the
 geometry and its statistics are the same.
@@ -25,6 +24,35 @@ from ..utils.timebuf import _so3_exp
 def _yaw(yaw: float) -> np.ndarray:
     c, s = np.cos(yaw), np.sin(yaw)
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def corridor_world(seed: int = 0, length: float = 80.0, width: float = 8.0,
+                   height: float = 4.0, points_per_m2: float = 28.0, n_pillars: int = 14,
+                   device="cuda") -> PointCloud:
+    """A corridor along +x: floor, ceiling and side walls as thin boxes,
+    and ``n_pillars`` cylinders of radius 0.3 m at random places (pillars
+    break the translational aliasing of bare corridors), with the JAX
+    package's point counts."""
+    rng = np.random.default_rng(seed)
+    parts = []
+
+    def wall(center, he):
+        n = int(points_per_m2 * (4 * (he[0] + he[1] + he[2]) ** 2) ** 0.5 * 10)
+        p, nrm = generators.uniform_box(rng, max(n, 500), half_extents=he)
+        parts.append((p + np.asarray(center, np.float32), nrm))
+
+    wall((length / 2, 0.0, 0.0), (length / 2, width / 2, 0.02))
+    wall((length / 2, 0.0, height), (length / 2, width / 2, 0.02))
+    wall((length / 2, -width / 2, height / 2), (length / 2, 0.02, height / 2))
+    wall((length / 2, width / 2, height / 2), (length / 2, 0.02, height / 2))
+    px = rng.uniform(3.0, length - 3.0, n_pillars)
+    py = rng.uniform(-width / 2 + 1.0, width / 2 - 1.0, n_pillars)
+    for x, y in zip(px, py):
+        p, nrm = generators.uniform_cylinder(rng, 1500, radius=0.3, height=height)
+        parts.append((p + np.array([x, y, height / 2], np.float32), nrm))
+    return make_cloud(np.concatenate([p for p, _ in parts]).astype(np.float32),
+                      normals=np.concatenate([n for _, n in parts]).astype(np.float32),
+                      device=device)
 
 
 def cluttered_world(seed: int = 0, extent: float = 30.0, n_objects: int = 40,

@@ -70,6 +70,15 @@ class StepOutput:
     dropped: Tensor
 
 
+def init_state(map_capacity: int, init_pose=None, device="cuda") -> MapState:
+    """An empty table of ``map_capacity`` slots at ``init_pose`` (identity
+    when None)."""
+    T = (torch.eye(4, dtype=torch.float32, device=device) if init_pose is None
+         else to_device(init_pose, device))
+    return MapState(map=voxel_map.empty(map_capacity, device=device), pose=T,
+                    last_insertion_pose=T.clone())
+
+
 def make_state(vmap: voxel_map.VoxelMap, pose, last_insertion_pose) -> MapState:
     """Rebuild a chained device state from host truth (submap table + host
     poses).  Host poses go through pinned memory with a non-blocking copy:
@@ -133,6 +142,14 @@ def mapper_step(state: MapState, raw_scan: PointCloud, estimate_T: Tensor,
                  _as_bool(insert_enable, state.pose.device))
 
 
+def mapper_step_delta(state: MapState, raw_scan: PointCloud, odom_delta: Tensor,
+                      cfg: PipelineConfig, insert_enable=True) -> Tuple[MapState, StepOutput]:
+    """``mapper_step`` with the initial guess composed on the device from
+    the odometry motion: estimate = pose x delta (≙ Mapper.cpp:265-300), so
+    that steps chain without reading the refined pose back."""
+    return mapper_step(state, raw_scan, state.pose @ odom_delta, cfg, insert_enable)
+
+
 def _stack_outputs(outs) -> StepOutput:
     return StepOutput(
         res=ICPResult(**{f.name: torch.stack([getattr(o.res, f.name) for o in outs])
@@ -167,6 +184,13 @@ def _flat_block(merged: PointCloud, record_mask: Tensor) -> PointCloud:
                       normals=merged.normals.reshape(K * N, 3),
                       mask=merged.mask.reshape(K * N))
     return flat.with_mask(flat.mask & record_mask.repeat_interleave(N))
+
+
+def chain_insert(state: MapState, cloud_map_frame: PointCloud, voxel_size) -> MapState:
+    """Fuse an already registered map-frame cloud into the chained table
+    without touching the pose chain."""
+    return MapState(map=voxel_map.insert(state.map, cloud_map_frame, voxel_size),
+                    pose=state.pose, last_insertion_pose=state.last_insertion_pose)
 
 
 def chain_insert_block(state: MapState, merged_stacked: PointCloud,
@@ -224,3 +248,18 @@ def mapper_step_block_shared_ref(state: MapState, scans: PointCloud,
         merged=mergeds, inserted=insert_oks, pose=Ts,
         map_count=new_map.count().expand(K), dropped=new_map.dropped.expand(K))
     return MapState(map=new_map, pose=pose, last_insertion_pose=last_ins), outs
+
+
+def run_sequence(state: MapState, scans: PointCloud, odom_deltas: Tensor,
+                 cfg: PipelineConfig) -> Tuple[MapState, Tensor]:
+    """Scan-at-a-time loop: the stacked scans [S, ...] through ``_step``
+    in turn, each from the previous pose x its odometry delta f32[S, 4, 4]
+    (the JAX package's ``lax.scan``).  Returns the final state and the
+    refined poses f32[S, 4, 4]."""
+    enable = _as_bool(True, state.pose.device)
+    poses = []
+    for k in range(scans.xyz.shape[0]):
+        state, _ = _step(state, scans.map(lambda t: t[k]), state.pose @ odom_deltas[k], cfg,
+                         enable)
+        poses.append(state.pose)
+    return state, torch.stack(poses)

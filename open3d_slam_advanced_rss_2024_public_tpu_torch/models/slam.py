@@ -24,8 +24,10 @@ import dataclasses
 import json
 import os
 import queue
+import sys
 import threading
 import time as _time
+import traceback
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -179,7 +181,8 @@ class SlamWrapper:
         if not mc.is_undistort_scan:
             return scan
         twist = motion_compensation.estimate_twist_from_buffer(
-            self.mapper.odom_buffer, mc.scan_duration, mc.num_poses_vel_estimation)
+            self.mapper.odom_buffer, mc.scan_duration, mc.num_poses_vel_estimation,
+            calibration=self.mapper.calibration)
         return motion_compensation.undistort(scan.to(self.device),
                                              to_device(twist, self.device),
                                              mc.is_spinning_clockwise)
@@ -358,8 +361,28 @@ class SlamWrapper:
             self._spawn(fn, name)
 
     def start_visualization(self, out_dir: str, rate_hz: float = 1.0, publish_fn=None) -> None:
-        raise NotImplementedError(
-            "the live visualization worker is not ported yet (ROADMAP §1 item 18)")
+        """Live periodic visualization worker (≙ the reference's
+        visualization worker publishing assembled map / submaps /
+        submap-origin axes / tracked + best-guess paths at a fixed rate,
+        SlamWrapperRos.cpp:247-330): ``frontends.viz.LiveVisualizationPublisher``
+        ticks at ``rate_hz`` on this worker's thread, which alone waits for
+        the tables' copies; ``publish_fn`` receives the written paths.  A
+        failed tick never stops the pipeline."""
+        from ..frontends.viz import LiveVisualizationPublisher
+
+        pub = LiveVisualizationPublisher(out_dir, publish_fn=publish_fn)
+        self.viz_publisher = pub
+
+        def viz_worker():
+            period = 1.0 / max(rate_hz, 1e-3)
+            while not self._stop.is_set():
+                try:
+                    pub.tick(self)
+                except Exception:  # the bundle must never stop the pipeline
+                    traceback.print_exc(file=sys.stderr)
+                _time.sleep(period)
+
+        self._spawn(viz_worker, "viz")
 
     def start_pose_stream(self, callback, rate_hz: float = 200.0) -> None:
         """Fixed-rate map->sensor pose output stream (≙ the ROS wrapper's

@@ -57,6 +57,10 @@ class SubmapCollection:
         """≙ findClosestSubmap (SubmapCollection.cpp:164-174)."""
         return int(np.argmin([np.linalg.norm(position - s.center()) for s in self.submaps]))
 
+    def total_num_points(self) -> int:
+        """Occupied voxels over every submap (reads each count back)."""
+        return sum(int(s.map.count()) for s in self.submaps)
+
     def _create_new_submap(self, map_to_range_sensor: np.ndarray, time: float) -> None:
         """≙ createNewSubmap (SubmapCollection.cpp:150-162).  Two slots per
         point of budget: open addressing needs load factor <= ~0.5."""

@@ -17,9 +17,11 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from . import se3
 from .pointcloud import PointCloud, make_cloud, to_numpy
-from .timebuf import _quat_from_matrix, _quat_to_matrix
+from .timebuf import _quat_to_matrix
 
 
 def save_pcd(path: str, cloud: PointCloud, binary: bool = True) -> None:
@@ -307,7 +309,8 @@ def save_tum_trajectory(path: str, times: List[float], poses: List[np.ndarray]) 
         f.write("# timestamp x y z q_x q_y q_z q_w\n")
         for t, T in zip(times, poses):
             T = np.asarray(T)
-            q = _quat_from_matrix(T[:3, :3])  # (w, x, y, z)
+            # (w, x, y, z) with w >= 0, as the JAX package writes it.
+            q = se3.quat_from_matrix(torch.as_tensor(T[:3, :3], dtype=torch.float32)).numpy()
             x, y, z = T[:3, 3]
             f.write(f"{t:.9f} {x:.6f} {y:.6f} {z:.6f} "
                     f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n")

@@ -71,6 +71,13 @@ class PointCloud:
     def count(self) -> Tensor:
         return self.mask.sum(-1, dtype=torch.int32)
 
+    @property
+    def has_normals(self) -> bool:
+        """True for every cloud, as in the JAX package (``normals is not
+        None``): absent normals are zeros, and the PointCloud2 writer sends
+        them all the same."""
+        return self.normals is not None
+
     def map(self, fn) -> "PointCloud":
         """Apply ``fn`` to every tensor field (the pytree map of the JAX
         package: slicing, stacking helpers, device moves)."""

@@ -1,9 +1,9 @@
 """SE(3) / SO(3) utilities on 4x4 float32 tensors, batched over leading dims.
 
-Counterpart of the functions of the JAX package's ``utils/se3.py`` that the
-mapper, the pose graph, RANSAC and place recognition use.  Everything is written with elementwise tensor ops
-and small matmuls: no LAPACK call, because torch's LAPACK wrappers on CUDA
-check their ``info`` result on the host and so synchronise the stream.
+Counterpart of the JAX package's ``utils/se3.py``.  Everything is written
+with elementwise tensor ops and small matmuls: no LAPACK call, because
+torch's LAPACK wrappers on CUDA check their ``info`` result on the host and
+so synchronise the stream.
 """
 from __future__ import annotations
 
@@ -14,6 +14,10 @@ import torch
 Tensor = torch.Tensor
 
 _EPS = 1e-9
+
+
+def identity(dtype=torch.float32, device=None) -> Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
 
 
 def make_transform(R: Tensor, t: Tensor) -> Tensor:
@@ -192,6 +196,63 @@ def quat_to_matrix(q: Tensor) -> Tensor:
         torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
     ], dim=-2)
+
+
+def quat_from_matrix(R: Tensor) -> Tensor:
+    """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] (w, x, y, z):
+    Shepperd's four branches, the largest per element, then the sign that
+    makes w >= 0 (JAX ``se3.py:225-247``)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cases = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11], -1),
+    ], dim=-2)
+    mags = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22,
+                        1.0 + m22 - m00 - m11], -1)
+    best = mags.argmax(-1)
+    q = torch.gather(cases, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_slerp(q0: Tensor, q1: Tensor, alpha) -> Tensor:
+    """Spherical interpolation along the shortest arc; linear where the two
+    are nearly equal."""
+    alpha = torch.as_tensor(alpha, dtype=q0.dtype, device=q0.device)
+    dot = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    theta = torch.arccos(torch.clamp(dot.abs(), -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    safe = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - alpha, torch.sin((1.0 - alpha) * theta) / safe)
+    w1 = torch.where(small, alpha, torch.sin(alpha * theta) / safe)
+    q = w0 * q0 + w1 * q1
+    return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)
+
+
+def interpolate(T0: Tensor, T1: Tensor, alpha) -> Tensor:
+    """Pose interpolation: slerp of the rotation, lerp of the translation;
+    ``alpha`` a scalar or batched like the poses' leading dims
+    (≙ reference Transform.cpp:16-60)."""
+    alpha = torch.as_tensor(alpha, dtype=T0.dtype, device=T0.device)
+    q = quat_slerp(quat_from_matrix(rotation(T0)), quat_from_matrix(rotation(T1)),
+                   alpha[..., None])
+    a = alpha[..., None]
+    return make_transform(quat_to_matrix(q), (1.0 - a) * translation(T0) + a * translation(T1))
+
+
+def extrapolate(T0: Tensor, T1: Tensor, alpha) -> Tensor:
+    """Continue the motion T0 -> T1: alpha 0 gives T0, 1 gives T1, 2 gives
+    T1 (T0^-1 T1) (≙ reference Transform.cpp:62-118)."""
+    alpha = torch.as_tensor(alpha, dtype=T0.dtype, device=T0.device)
+    delta = se3_log(compose(inverse(T0), T1))
+    return compose(T0, se3_exp(alpha[..., None] * delta))
 
 
 def horn_rotation(M: Tensor, steps: int = 30) -> Tensor:

@@ -241,13 +241,16 @@ for p in sorted((root / {PORT!r}).rglob("*.py")):
     parts = [x for x in rel.parts if x != "__init__"]
     importlib.import_module(".".join(parts))
 importlib.import_module("chip_smoke")
-# The command-line path's and the ICP chain's modules among them, none of
-# which may fall back on the JAX package's pure-Python copies.
+# The command-line path's, the ICP chain's and the rosbag path's modules
+# among them, none of which may fall back on the JAX package's pure-Python
+# copies.
 for name in ("frontends.cli", "frontends.replay", "frontends.kitti", "native",
              "utils.lua_config", "utils.yaml_config", "utils.frames",
              "models.map_initializer", "ops.filters_extra", "ops.registration.chain",
              "ops.registration.sequence", "ops.registration.inspectors",
-             "ops.registration.loggers", "ops.registration.parametrizable"):
+             "ops.registration.loggers", "ops.registration.parametrizable",
+             "frontends.rosbag", "frontends.online", "frontends.viz",
+             "frontends.visualizer_node", "frontends.adjacency_example", "models.imu"):
     assert {PORT!r} + "." + name in sys.modules, name
 assert "yaml" not in sys.modules  # imported by the YAML loader when it loads
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None

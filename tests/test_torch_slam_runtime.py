@@ -214,7 +214,24 @@ def test_dense_map_and_initial_map():
     assert int(loc.mapper.submaps.active_submap.map.count()) == before
 
 
-def test_unported_viewer_raises_with_its_roadmap_item(tmp_path):
-    slam = SlamWrapper(loop_params(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.start_visualization(str(tmp_path))
+def test_unported_viewer_raises_with_its_roadmap_item(closed_loop, tmp_path):
+    # The viewer is ported: its worker renders the closed loop's bundle
+    # (every submap in its color, the trajectory tubes, the submap axes).
+    slam = closed_loop[0]
+    published = []
+    slam.start_visualization(str(tmp_path), rate_hz=20.0, publish_fn=published.append)
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and not published:
+            time.sleep(0.05)
+    finally:
+        slam.stop_workers()
+    assert published and slam.viz_publisher.publish_count >= 1
+    assert not slam._workers
+    submaps = slam.mapper.submaps
+    back = io.load_ply(str(tmp_path / "submaps_colored.ply"), device="cpu")
+    assert int(back.count()) == submaps.total_num_points() > 1000
+    axes = io.load_ply(str(tmp_path / "submap_origins.ply"), device="cpu")
+    assert int(axes.count()) == 60 * len(submaps.submaps)
+    for name in ("trajectory_tube.pcd", "best_guess_tube.pcd"):
+        assert int(io.load_pcd(str(tmp_path / name), device="cpu").count()) > 0, name
