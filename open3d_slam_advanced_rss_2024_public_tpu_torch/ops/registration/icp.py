@@ -17,20 +17,24 @@ dispatching once a copy that has landed says converged.  The host still
 never waits, and the result is the fixed-trip result, because the carry is
 frozen from the converged trip on.
 
-The whole surface of the JAX package's ICP loop is here but the sharded
-matcher (ROADMAP §1 item 19): every minimizer (point-to-plane with its
-4-DOF and 2-D restrictions, point-to-point, GICP, similarity, identity),
-kNN matching, the per-point match radius from a descriptor channel
-(``max_dist_field``, ≙ KDTreeVarDistMatcher), every ``outlier_chain``
-filter including ``generic_desc`` (weights from the matched reference
-point's descriptor), the bound checker, and the kernel, brute-force and
-hashed-grid matchers.
+The whole surface of the JAX package's ICP loop is here: every minimizer
+(point-to-plane with its 4-DOF and 2-D restrictions, point-to-point, GICP,
+similarity, identity), kNN matching, the per-point match radius from a
+descriptor channel (``max_dist_field``, ≙ KDTreeVarDistMatcher), every
+``outlier_chain`` filter including ``generic_desc`` (weights from the
+matched reference point's descriptor), the bound checker, and the kernel,
+brute-force, hashed-grid and sharded matchers.  The sharded matcher
+(``parallel/``) searches each rank's own map shard with kernel K1 (JAX:
+brute force) and reduces the winners over the mesh that ``make_mesh``
+registered under ``shard_axis``; its loop never polls, since a rank that
+stopped on its own clock would leave the others in a collective.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ...utils import se3
@@ -44,7 +48,7 @@ Tensor = torch.Tensor
 
 # Matcher names that select kernel K1 ("pallas" keeps JAX parameter files valid).
 KERNEL_MATCHERS = ("cuda", "pallas")
-MATCHERS = KERNEL_MATCHERS + ("bruteforce", "hashgrid")
+MATCHERS = KERNEL_MATCHERS + ("bruteforce", "hashgrid", "sharded")
 
 
 def resolve_matcher(name: str) -> str:
@@ -87,8 +91,12 @@ class ICPConfig:
     outlier_chain: Optional[tuple] = None
     bound_max_rot: Optional[float] = None
     bound_max_trans: Optional[float] = None
-    # "cuda" (kernel K1; alias "pallas"), "bruteforce" or "hashgrid".
+    # "cuda" (kernel K1; alias "pallas"), "bruteforce", "hashgrid" or
+    # "sharded" (each rank searches its map shard with K1, the winners
+    # reduce over the mesh registered under ``shard_axis``).
     matcher: str = "bruteforce"
+    # The mesh axis of the "sharded" matcher; also sums the reference
+    # centroid over the mesh.
     shard_axis: Optional[str] = None
 
 
@@ -110,14 +118,24 @@ class ICPResult:
                             for f in dataclasses.fields(self)})
 
 
+def _mesh(cfg: ICPConfig):
+    """The mesh registered under ``cfg.shard_axis`` (imported here: the
+    parallel package builds on this module)."""
+    from ...parallel.mesh import mesh_for_axis
+
+    return mesh_for_axis(cfg.shard_axis)
+
+
 def check_supported(cfg: ICPConfig) -> None:
-    """Raise on the part of the JAX package's ICP surface not ported yet
-    (the sharded matcher) and on an unknown matcher."""
-    if cfg.matcher == "sharded" or cfg.shard_axis is not None:
-        raise NotImplementedError("ICP matcher='sharded' is not ported yet "
-                                  "(ROADMAP §1 item 19)")
+    """Raise ValueError on an unknown matcher, and on a sharded
+    configuration whose mesh axis no ``make_mesh`` registered (JAX asserts
+    at ``icp.py:216``)."""
     if cfg.matcher not in MATCHERS:
         raise ValueError(f"unknown matcher: {cfg.matcher!r}")
+    if cfg.matcher == "sharded" and cfg.shard_axis is None:
+        raise ValueError("the sharded matcher needs shard_axis")
+    if cfg.shard_axis is not None:
+        _mesh(cfg)
 
 
 def _weights(cfg: ICPConfig, sq_dists, found, src_nrm, ref_nrm, slot_mask, p2plane_sq,
@@ -182,7 +200,7 @@ def prepare_reference(cfg: ICPConfig, ref_grid: HashGrid) -> Optional[cuda_nn.NN
     """What the matcher derives from the reference alone, computed once for
     every registration against ``ref_grid`` (kernel K1's prepared
     reference; the other matchers need nothing)."""
-    if cfg.matcher in KERNEL_MATCHERS and cfg.knn == 1:
+    if cfg.matcher in KERNEL_MATCHERS + ("sharded",) and cfg.knn == 1:
         return cuda_nn.prepare_ref(ref_grid.points)
     return None
 
@@ -205,6 +223,8 @@ def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid:
                 mask.repeat_interleave(k), ref_grid.points[flat], ref_grid.normals[flat],
                 d2.reshape(-1), ok.reshape(-1), ok.any(-1),
                 None if ref_grid.desc is None else ref_grid.desc[flat])
+    if cfg.matcher == "sharded":
+        return _match_sharded(cfg, src, src_nrm, mask, ref_grid, nn_ref)
     if cfg.matcher in KERNEL_MATCHERS:
         idx, d2 = cuda_nn.nn(src, ref_grid.points if nn_ref is None else nn_ref,
                              cfg.max_correspondence_dist)
@@ -217,6 +237,29 @@ def _match(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor, ref_grid:
                                            max_per_bucket=cfg.max_per_bucket)
     return (src, src_nrm, mask, ref_grid.points[idx], ref_grid.normals[idx], d2, found,
             found, None if ref_grid.desc is None else ref_grid.desc[idx])
+
+
+def _match_sharded(cfg: ICPConfig, src: Tensor, src_nrm: Tensor, mask: Tensor,
+                   ref_grid: HashGrid, nn_ref: Optional[cuda_nn.NNRef]):
+    """The sharded matcher (JAX ``icp.py:210-235``): every rank searches its
+    own reference shard with K1 for the same (replicated) queries, and the
+    global winner -- its point, normal and descriptor -- reduces over the
+    mesh (``mesh.reduce_winners``), so that ranks that pass the same
+    queries get the same correspondences."""
+    from ...parallel.mesh import reduce_winners
+
+    idx, d2 = cuda_nn.nn(src, ref_grid.points if nn_ref is None else nn_ref,
+                         cfg.max_correspondence_dist)
+    r = np.float32(cfg.max_correspondence_dist)
+    found = mask & (d2 <= float(r * r))
+    parts = [ref_grid.points[idx], ref_grid.normals[idx]]
+    if ref_grid.desc is not None:
+        parts.append(ref_grid.desc[idx][:, None])
+    best, won = reduce_winners(_mesh(cfg), torch.where(found, d2, float("inf")),
+                               torch.cat(parts, dim=-1))
+    found = mask & torch.isfinite(best)
+    return (src, src_nrm, mask, won[:, 0:3], won[:, 3:6], torch.where(found, best, float("inf")),
+            found, found, won[:, 6] if ref_grid.desc is not None else None)
 
 
 def _vardist_gate(cfg: ICPConfig, source: PointCloud, d2: Tensor, found: Tensor,
@@ -234,12 +277,19 @@ def _vardist_gate(cfg: ICPConfig, source: PointCloud, d2: Tensor, found: Tensor,
     return found, found
 
 
-def reference_centroid(ref_grid: HashGrid) -> Tensor:
+def reference_centroid(ref_grid: HashGrid, shard_axis: Optional[str] = None) -> Tensor:
     """Centroid of the valid reference points (the de-meaned solving frame,
-    ≙ ICP.cpp:293-326)."""
+    ≙ ICP.cpp:293-326).  With ``shard_axis`` the count and the sum reduce
+    over the mesh (one packed ``psum``), so every shard solves in the same
+    global frame."""
     ref_valid = ref_grid.points[:, 0].abs() < 1e7
     nref = ref_valid.sum(dtype=torch.float32)
     total = torch.where(ref_valid[:, None], ref_grid.points, 0.0).sum(0)
+    if shard_axis is not None:
+        from ...parallel.mesh import mesh_for_axis, psum
+
+        both = psum(mesh_for_axis(shard_axis), torch.cat([nref[None], total]))
+        nref, total = both[0], both[1:]
     return total / torch.clamp(nref, min=1.0)
 
 
@@ -332,12 +382,16 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
     differential checker, the counter, the bound checker) stay on the
     device.  ``poll_every`` > 0 stops dispatching trips once a non-blocking
     look at the done flag, taken every ``poll_every`` trips, shows that
-    the loop has stopped (same result, fewer launches)."""
+    the loop has stopped (same result, fewer launches); the sharded matcher
+    refuses it (each rank would stop on its own clock)."""
     check_supported(cfg)
+    if poll_every > 0 and cfg.matcher == "sharded":
+        raise ValueError("the sharded matcher runs every trip on every rank: "
+                         "poll_every must be 0")
     if nn_ref is None:
         nn_ref = prepare_reference(cfg, ref_grid)
     dev = source.device
-    centroid = reference_centroid(ref_grid)
+    centroid = reference_centroid(ref_grid, cfg.shard_axis)
     smooth = max(cfg.smooth_length, 1)
     T = init_T.to(torch.float32)
     init_inv = se3.inverse(T)
@@ -397,7 +451,8 @@ def register_with_covariance(source: PointCloud, ref_grid: HashGrid, init_T: Ten
     nn_ref = prepare_reference(cfg, ref_grid)
     res = register(source, ref_grid, init_T, cfg, nn_ref=nn_ref, poll_every=poll_every)
     src, _, _, ref_nrm, found, _, w = _matched(cfg, source, ref_grid, res.transform, nn_ref)
-    src_c = torch.where(found[:, None], src - reference_centroid(ref_grid), 0.0)
+    src_c = torch.where(found[:, None], src - reference_centroid(ref_grid, cfg.shard_axis),
+                        0.0)
     if cfg.minimizer == "point_to_plane":
         return res, minimizers.point_to_plane_covariance(src_c, ref_nrm, w, sensor_std)
     return res, minimizers.point_to_point_covariance(src_c, w, sensor_std)

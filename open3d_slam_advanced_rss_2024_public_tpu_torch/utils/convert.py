@@ -34,6 +34,13 @@ def voxel_map_from_jax(jmap, device="cuda") -> VoxelMap:
                                  jmap.dropped, device=device)
 
 
+def voxel_map_shard_from_jax(jmaps, rank: int, device="cuda") -> VoxelMap:
+    """Rank ``rank``'s table out of a JAX ``[D, C, ...]``-stacked sharded map
+    (``parallel.sharded_map``): the state one rank of the port holds."""
+    return voxel_map_from_arrays(*(np.asarray(x)[rank] for x in (
+        jmaps.ptable, jmaps.origin, jmaps.acc, jmaps.cell, jmaps.dropped)), device=device)
+
+
 def cloud_from_arrays(xyz, normals, mask, device="cuda", attrs=None,
                       attr_names=()) -> PointCloud:
     """The fields of a JAX ``PointCloud`` -> the port's, lane for lane."""
@@ -103,6 +110,22 @@ def constraints_from_jax(jconstraints):
                        T_source_target=np.array(c.T_source_target, np.float32),
                        information=np.array(c.information, np.float32),
                        is_odometry=bool(c.is_odometry)) for c in jconstraints]
+
+
+def pose_graph_arrays_from_jax(jgraph, device="cuda"):
+    """A JAX ``PoseGraphArrays`` (padded to its capacity) -> the port's,
+    lane for lane (the layout the distributed solver takes)."""
+    from ..models.pose_graph import PoseGraphArrays
+
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    return PoseGraphArrays(
+        node_poses=t(jgraph.node_poses, torch.float32), node_mask=t(jgraph.node_mask, torch.bool),
+        edge_src=t(jgraph.edge_src, torch.int64), edge_dst=t(jgraph.edge_dst, torch.int64),
+        edge_T=t(jgraph.edge_T, torch.float32), edge_info=t(jgraph.edge_info, torch.float32),
+        edge_uncertain=t(jgraph.edge_uncertain, torch.bool),
+        edge_mask=t(jgraph.edge_mask, torch.bool))
 
 
 def optimization_problem_from_dict(d: dict, max_nodes: int = 128, max_edges: int = 512,

@@ -241,18 +241,23 @@ for p in sorted((root / {PORT!r}).rglob("*.py")):
     parts = [x for x in rel.parts if x != "__init__"]
     importlib.import_module(".".join(parts))
 importlib.import_module("chip_smoke")
-# The command-line path's, the ICP chain's and the rosbag path's modules
-# among them, none of which may fall back on the JAX package's pure-Python
-# copies.
+# The command-line path's, the ICP chain's, the rosbag path's and the
+# multi-chip path's modules among them, none of which may fall back on the
+# JAX package's pure-Python copies; and none may start a process group.
 for name in ("frontends.cli", "frontends.replay", "frontends.kitti", "native",
              "utils.lua_config", "utils.yaml_config", "utils.frames",
              "models.map_initializer", "ops.filters_extra", "ops.registration.chain",
              "ops.registration.sequence", "ops.registration.inspectors",
              "ops.registration.loggers", "ops.registration.parametrizable",
              "frontends.rosbag", "frontends.online", "frontends.viz",
-             "frontends.visualizer_node", "frontends.adjacency_example", "models.imu"):
+             "frontends.visualizer_node", "frontends.adjacency_example", "models.imu",
+             "parallel", "parallel.mesh", "parallel.sharded_icp", "parallel.sharded_map",
+             "parallel.sharded_slam", "parallel.sharded_session",
+             "parallel.distributed_pose_graph"):
     assert {PORT!r} + "." + name in sys.modules, name
 assert "yaml" not in sys.modules  # imported by the YAML loader when it loads
+import torch.distributed
+assert not torch.distributed.is_initialized()
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
        or m == "open3d_slam_advanced_rss_2024_public_tpu"
        or m.startswith("open3d_slam_advanced_rss_2024_public_tpu.")
@@ -278,21 +283,44 @@ def test_mapper_without_cpu_device_raises_where_no_cuda():
 
 
 def test_unported_surface_raises_not_implemented():
-    # What stays unported raises, naming its ROADMAP item: the sharded
-    # matcher (19).  The hashed grid, GICP and the other minimizers,
-    # carving, and the parts of ICP that need descriptor channels (item 17),
-    # which raised here before, now run (``test_torch_registration.py``,
+    # Nothing stays unported.  The sharded matcher (ROADMAP item 19), the
+    # last part that raised here, now runs where a mesh is registered under
+    # its axis (``test_torch_parallel.py``) and raises ValueError where none
+    # is.  The hashed grid, GICP and the other minimizers, carving, and the
+    # parts of ICP that need descriptor channels (item 17), which raised
+    # here before, run (``test_torch_registration.py``,
     # ``test_torch_hashgrid.py``, ``test_torch_chain.py``).
+    import torch.distributed as dist
+
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models import scan_processing
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models.submap_collection import (
         SubmapCollection)
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.parallel import mesh as pmesh
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.parallel.sharded_slam import (
+        init_distributed)
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
 
-    for cfg, item in ((icp.ICPConfig(matcher="sharded"), "item 19"),
-                      (icp.ICPConfig(shard_axis="map"), "item 19")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+    sharded = (icp.ICPConfig(matcher="sharded", shard_axis="map"), icp.ICPConfig(shard_axis="map"))
+    for cfg in sharded:
+        with pytest.raises(ValueError, match="no mesh has the axis 'map'"):
             icp.check_supported(cfg)
+    init_distributed(device="cpu")  # a world of one on a local store
+    try:
+        pmesh.make_mesh(device="cpu", axis="map")
+        for cfg in sharded:
+            icp.check_supported(cfg)
+    finally:
+        dist.destroy_process_group()
+    # The mesh goes with its process group.
+    for cfg in sharded:
+        with pytest.raises(ValueError, match="no mesh has the axis 'map'"):
+            icp.check_supported(cfg)
+    assert "map" not in pmesh._MESHES
+    with pytest.raises(ValueError, match="needs shard_axis"):
+        icp.check_supported(icp.ICPConfig(matcher="sharded"))
+    # No module refuses a part of the surface, naming a ROADMAP item.
+    assert not any("ROADMAP §1 item" in p.read_text() for p in (REPO / PORT).rglob("*.py"))
     for cfg in (icp.ICPConfig(matcher="hashgrid", minimizer="gicp", knn=3),
                 icp.ICPConfig(outlier_chain=(("robust", "cauchy", 1.0, "mad", "point2point",
                                               float("inf")),), bound_max_rot=0.2),
