@@ -1,0 +1,2 @@
+"""The plain reference that decides ``correct``: plain PyTorch and NumPy,
+nothing of the program under test."""

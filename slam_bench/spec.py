@@ -1,0 +1,64 @@
+"""The manifest and the files it names: a cell's configuration, its traffic
+mix and the reader of each of its metrics, found by name."""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import pathlib
+from typing import Dict, List
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    end_to_end: List[dict]
+    per_layer: List[dict]
+
+
+def load_manifest(root: pathlib.Path = ROOT) -> dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def _reports(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def cell(name: str, root: pathlib.Path = ROOT) -> Cell:
+    manifest = load_manifest(root)
+    work = {w["name"]: w for w in manifest["workloads"]}
+    if name not in work:
+        raise SystemExit(f"unknown workload {name!r}; the manifest has {sorted(work)}")
+    w = work[name]
+    conf = {c["name"]: c for c in manifest["configs"]}[w["config"]]
+    config = json.loads((root / conf["file"]).read_text())
+    traffic = json.loads((root / HERE.name / "traffic" / f"{w['traffic']}.json").read_text())
+    e2e = [m for m in manifest["end_to_end"] if _reports(m, name)]
+    reported = {m["name"] for m in e2e}
+    layer = [m for m in manifest["per_layer"]
+             if _reports(m, name) and m["moves"] in reported]
+    return Cell(name, int(w["chips"]), config, traffic, e2e, layer)
+
+
+def reader(metric: str, root: pathlib.Path = ROOT):
+    """The ``read(ctx)`` of ``metrics/<metric>.py``."""
+    path = root / HERE.name / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"slam_bench_metric_{metric}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def read_metrics(metrics: List[dict], ctx, root: pathlib.Path = ROOT) -> Dict[str, dict]:
+    out = {}
+    for m in metrics:
+        value = reader(m["name"], root)(ctx)
+        if value is not None:
+            out[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return out
