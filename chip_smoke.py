@@ -604,6 +604,26 @@ def slam_params(scan_points: int, patch: int, submap_points: int, feature_points
             "ransac_batch_size": ransac_batch}}})
 
 
+# Printed field -> the tracer's loop-closure span (``utils/timing.py``).
+LOOP_CLOSURE_STAGES = {"features": "loop_closure/features",
+                       "odom_constraints": "loop_closure/odometry_constraints",
+                       "lc_build": "loop_closure/candidates",
+                       "pose_graph_solve": "loop_closure/solve",
+                       "lc_apply_transforms": "loop_closure/apply"}
+
+
+def loop_closure_stage_ms(timing) -> dict:
+    """``<field>_ms``: "total host ms/calls" of each loop-closure span the
+    tracer recorded."""
+    spans = timing.records()["spans"]
+    out = {}
+    for field, name in LOOP_CLOSURE_STAGES.items():
+        ms = [(s.end_ns - s.start_ns) * 1e-6 for s in spans if s.name == name]
+        if ms:
+            out[f"{field}_ms"] = f"{sum(ms):.1f}/{len(ms)}"
+    return out
+
+
 def span(values) -> str:
     return f"{min(values)}..{max(values)}" if values else "none"
 
@@ -660,8 +680,7 @@ def slam_loop(torch, dev, gen):
     from open3d_slam_advanced_rss_2024_public_tpu_torch.models.slam import SlamWrapper
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn,
                                                                     cuda_tiles)
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.timing import GLOBAL_STATS
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io, timing
 
     world = synthetic.cluttered_world(11, extent=34.0, n_objects=50, device=dev)
     gt = synthetic.loop_trajectory(SLAM_SCANS, radius=10.0, center=(17.0, 0.0), z=1.0)
@@ -674,7 +693,8 @@ def slam_loop(torch, dev, gen):
     # Warm-up (allocator, cuSOLVER handle) on a run that rolls over once.
     run_slam(SlamWrapper(params, device=dev), scans[:10], odom, gt[0])
     torch.cuda.synchronize()
-    GLOBAL_STATS.timers.clear()
+    timing.reset()
+    timing.enable()
     cuda_nn.reset_launches()
     cuda_moments.reset_launches()
     cuda_tiles.reset_launches()
@@ -693,6 +713,7 @@ def slam_loop(torch, dev, gen):
     est = run_slam(slam, scans, odom, gt[0])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    timing.disable()
     builders, lanes = finish_record()
     launches = {"nn": cuda_nn.launches, "moments": cuda_moments.launches,
                 "tile_prepare": cuda_tiles.prepare_launches,
@@ -702,9 +723,6 @@ def slam_loop(torch, dev, gen):
     gt_arr, odom_arr = np.stack(gt[:len(est)]), np.stack(odom[:len(est)])
     ate_est = io.ate_rmse(est, gt_arr, align=False)
     ate_odom = io.ate_rmse(odom_arr, gt_arr, align=False)
-    stages = {name.split("/")[1]: GLOBAL_STATS.timers[name] for name in (
-        "slam/features", "slam/odom_constraints", "slam/lc_build", "slam/pose_graph_solve",
-        "slam/lc_apply_transforms") if name in GLOBAL_STATS.timers}
     phase("slam loop", scans=len(est), ms_per_scan=f"{wall / len(est) * 1e3:.3f}",
           submaps=len(slam.mapper.submaps.submaps), closures=slam.loop_closure_count,
           ate_odometry_m=f"{ate_odom:.4f}", ate_slam_m=f"{ate_est:.4f}",
@@ -713,8 +731,7 @@ def slam_loop(torch, dev, gen):
           nn_launches_on_full_overlap_clouds=builders[("edge", True)]
           + builders[("closure", True)],
           edge_overlap_lanes=span(lanes["edge"]), closure_overlap_lanes=span(lanes["closure"]),
-          moments_launches=launches["moments"],
-          **{f"{k}_ms": f"{t.total_ms:.1f}/{t.count}" for k, t in stages.items()})
+          moments_launches=launches["moments"], **loop_closure_stage_ms(timing))
     if est.shape != (SLAM_SCANS + 1, 4, 4) or not np.isfinite(est).all():
         fail(f"slam loop: poses of shape {est.shape}, finite={np.isfinite(est).all()}")
     if len(slam.mapper.submaps.submaps) < 3:
@@ -1503,12 +1520,12 @@ def cli_kitti(torch, dev, gt):
     from open3d_slam_advanced_rss_2024_public_tpu_torch import native
     from open3d_slam_advanced_rss_2024_public_tpu_torch.ops import (cuda_moments, cuda_nn,
                                                                     cuda_tiles)
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.timing import GLOBAL_STATS
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import io, timing
 
     out = OUT / "cli_kitti"
     counting = _Counting()
-    GLOBAL_STATS.timers.clear()
+    timing.reset()
+    timing.enable()
     cuda_nn.reset_launches()
     cuda_moments.reset_launches()
     cuda_tiles.reset_launches()
@@ -1519,6 +1536,7 @@ def cli_kitti(torch, dev, gt):
         torch.cuda.synchronize()
     finally:
         counting.restore()
+        timing.disable()
     wall = time.perf_counter() - t0
     launches = {"nn": cuda_nn.launches, "moments": cuda_moments.launches,
                 "tile_prepare": cuda_tiles.prepare_launches,
@@ -1534,14 +1552,10 @@ def cli_kitti(torch, dev, gt):
     map_points = int(io.load_pcd(str(out / "map.pcd"), device=dev).mask.sum())
     graph = json.loads((out / "pose_graph.json").read_text())
     odo = slam.odometry
-    stages = {name[5:]: t for name, t in GLOBAL_STATS.timers.items()
-              if name[5:] in ("features", "odom_constraints", "lc_build", "pose_graph_solve",
-                              "lc_apply_transforms", "finish_features", "finish_lc")
-              and name.startswith("slam/")}
     phase("cli kitti", scans=n, trajectory_entries=len(est), ms_per_scan=f"{wall / n * 1e3:.3f}",
           odometry_ms=f"{counting.host_ms['odometry']:.1f}",
           mapper_ms=f"{counting.host_ms['mapper']:.1f}",
-          **{f"{k}_ms": f"{t.total_ms:.1f}/{t.count}" for k, t in stages.items()},
+          **loop_closure_stage_ms(timing),
           submaps=len(slam.mapper.submaps.submaps), closures=slam.loop_closure_count,
           ate_rmse_m=result.get("ate_rmse_m"), ate_slam_m=f"{ate:.4f}",
           ate_odometry_m=f"{ate_odom:.4f}", minimizer=odo.icp_cfg.minimizer,

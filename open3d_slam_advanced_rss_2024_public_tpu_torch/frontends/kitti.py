@@ -15,6 +15,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import native
+from ..utils import timing
 from ..utils.pointcloud import PointCloud, make_cloud
 from .replay import ReplayFrame
 
@@ -51,6 +52,13 @@ def read_poses(path: str, Tr: np.ndarray) -> np.ndarray:
 def kitti_sequence(root: str, sequence: str = "00", capacity: int = 131072,
                    max_frames: Optional[int] = None, rate_hz: float = 10.0,
                    use_gt_as_odometry: bool = False, device="cuda") -> Iterator[ReplayFrame]:
+    """The sequence's scans as ReplayFrames, each read in a ``frontend``
+    span of the tracer."""
+    yield from timing.iterate("frontend", _frames(root, sequence, capacity, max_frames,
+                                                  rate_hz, use_gt_as_odometry, device))
+
+
+def _frames(root, sequence, capacity, max_frames, rate_hz, use_gt_as_odometry, device):
     seq_dir = os.path.join(root, "sequences", sequence)
     velo_dir = os.path.join(seq_dir, "velodyne")
     files = sorted(f for f in os.listdir(velo_dir) if f.endswith(".bin"))

@@ -26,6 +26,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import timing
 from ..utils.device import to_device
 from ..utils.pointcloud import PointCloud, make_cloud
 from ..utils.timebuf import TransformInterpolationBuffer
@@ -669,7 +670,15 @@ def rosbag_sequence(bag_path: str, cloud_topic: str,
     interpolated odometry pose at its stamp (≙ RosbagRangeDataProcessorRos'
     cloud/odometry pairing + the static calibration applied from TF,
     reference RosbagRangeDataProcessorRos.cpp:865-905).  Clouds are built
-    on ``device`` at ``capacity`` lanes; a scan with more points raises."""
+    on ``device`` at ``capacity`` lanes; a scan with more points raises.
+    Each frame is read in a ``frontend`` span of the tracer."""
+    yield from timing.iterate("frontend", _frames(bag_path, cloud_topic, odometry_topic,
+                                                  capacity, odometry_to_cloud_calibration,
+                                                  device))
+
+
+def _frames(bag_path, cloud_topic, odometry_topic, capacity, odometry_to_cloud_calibration,
+            device):
     from .replay import ReplayFrame
 
     reader = RosbagReader(bag_path)

@@ -34,13 +34,14 @@ from typing import Deque, List, Optional
 import numpy as np
 import torch
 
+from ..ops import cuda_nn
 from ..ops import voxel_map as vm
 from ..ops.registration.icp import ICPConfig, resolve_matcher
+from ..utils import timing
 from ..utils.config import SlamParameters
 from ..utils.device import HostCopy, resolve_device, to_device
 from ..utils.pointcloud import SENTINEL, PointCloud, concatenate, empty_cloud, stack
 from ..utils.timebuf import TransformInterpolationBuffer
-from ..utils.timing import GLOBAL_STATS as _STATS
 from . import pipeline
 from .submap_collection import SubmapCollection
 
@@ -107,6 +108,7 @@ class _QueuedScan:
     scan: PointCloud
     motion: np.ndarray      # odometry delta fed as the on-device guess
     insert_enable: bool
+    scan_id: Optional[int] = None  # the tracer's scan id (``timing.set_scan``)
 
 
 @dataclasses.dataclass
@@ -116,6 +118,7 @@ class _InflightBlock:
     items: List[_QueuedScan]
     outs: pipeline.StepOutput   # stacked [K, ...] device outputs
     readback: HostCopy          # pose, match_ratio, inserted, map_count, dropped
+                                # (+ ICP iterations while the tracer is on)
     # Set when a later-processed rollover made this block's device fusion
     # land in the closed submap: its records re-fuse into the fresh chain.
     tail: bool = False
@@ -188,6 +191,9 @@ class Mapper:
         self._cv = threading.Condition(self._lock)
         self._reader: Optional[threading.Thread] = None
         self.max_inflight_blocks = 4
+        # The first scan's ICP iterations (tracer on): read once a later
+        # block's readback has landed, which the stream orders after them.
+        self._first_scan_trips: List[HostCopy] = []
 
     @staticmethod
     def _validate_map_extent(params: SlamParameters) -> None:
@@ -260,33 +266,38 @@ class Mapper:
         items = self._queue
         if not items:
             return
-        self._queue = []
-        if self._reader is None:
-            self._reader = threading.Thread(target=self._reader_loop,
-                                            name="mapper-readback", daemon=True)
-            self._reader.start()
-        K, n = self.readback_lag, len(items)
-        scans = [q.scan for q in items]
-        motions = [q.motion for q in items]
-        ens = [q.insert_enable for q in items]
-        if 1 < n < K:
-            if self._pad_scan is None:
-                self._pad_scan = _make_pad_scan(items[0].scan)
-            scans += [self._pad_scan] * (K - n)
-            motions += [np.eye(4, dtype=np.float32)] * (K - n)
-            ens += [False] * (K - n)
-        sb = stack(scans)
-        db = to_device(np.stack(motions), self.device)
-        eb = to_device(np.asarray(ens), self.device, dtype=torch.bool)
-        self._ensure_state()
-        block_fn = (pipeline.mapper_step_block_shared_ref
-                    if (self.pipe_cfg.shared_block_reference and len(scans) > 1)
-                    else pipeline.mapper_step_block)
-        self._state, outs = block_fn(self._state, sb, db, eb, self.pipe_cfg)
-        readback = HostCopy([outs.pose, outs.res.match_ratio, outs.inserted,
-                             outs.map_count, outs.dropped])
-        self._inflight.append(_InflightBlock(items=items, outs=outs, readback=readback))
-        self._cv.notify_all()
+        with timing.span("mapper/dispatch", launches=cuda_nn.launch_count):
+            self._queue = []
+            if self._reader is None:
+                self._reader = threading.Thread(target=self._reader_loop,
+                                                name="mapper-readback", daemon=True)
+                self._reader.start()
+            K, n = self.readback_lag, len(items)
+            scans = [q.scan for q in items]
+            motions = [q.motion for q in items]
+            ens = [q.insert_enable for q in items]
+            if 1 < n < K:
+                if self._pad_scan is None:
+                    self._pad_scan = _make_pad_scan(items[0].scan)
+                scans += [self._pad_scan] * (K - n)
+                motions += [np.eye(4, dtype=np.float32)] * (K - n)
+                ens += [False] * (K - n)
+            sb = stack(scans)
+            db = to_device(np.stack(motions), self.device)
+            eb = to_device(np.asarray(ens), self.device, dtype=torch.bool)
+            self._ensure_state()
+            block_fn = (pipeline.mapper_step_block_shared_ref
+                        if (self.pipe_cfg.shared_block_reference and len(scans) > 1)
+                        else pipeline.mapper_step_block)
+            self._state, outs = block_fn(self._state, sb, db, eb, self.pipe_cfg)
+            back = [outs.pose, outs.res.match_ratio, outs.inserted, outs.map_count,
+                    outs.dropped]
+            if timing.active():
+                # The trips that moved the pose: read with the block, no wait of its own.
+                back.append(outs.res.iterations)
+            readback = HostCopy(back)
+            self._inflight.append(_InflightBlock(items=items, outs=outs, readback=readback))
+            self._cv.notify_all()
 
     def _reader_loop(self) -> None:
         """Wait for each in-flight block's readback IN ORDER (outside the
@@ -298,17 +309,19 @@ class Mapper:
                 while not self._inflight:
                     self._cv.wait(timeout=0.5)
                 blk = self._inflight[0]
+            timing.set_scan(blk.items[0].scan_id)
             vals = None
             try:
-                with _STATS.time("mapper/block_readback"):
+                with timing.span("mapper/readback_wait"):
                     vals = blk.readback.wait()
             except Exception:  # noqa: BLE001 — keep draining; report loudly
                 traceback.print_exc()
             with self._cv:
                 self._inflight.popleft()
                 try:
-                    if vals is not None and self._process_block(blk, vals):
-                        self._rebuild_after_rollover()
+                    with timing.span("mapper/bookkeeping"):
+                        if vals is not None and self._process_block(blk, vals):
+                            self._rebuild_after_rollover()
                 except Exception:  # noqa: BLE001 — same as above
                     traceback.print_exc()
                 finally:
@@ -320,7 +333,7 @@ class Mapper:
         scan's odometry extrapolation), and tag every block still in flight
         as tail — their records re-fuse into the fresh chain when their
         readbacks land."""
-        with _STATS.time("mapper/rollover_rebuild"):
+        with timing.span("mapper/rollover_rebuild"):
             chain_pose = self.map_to_range_sensor.astype(np.float64)
             for blk in self._inflight:
                 for q in blk.items:
@@ -337,7 +350,10 @@ class Mapper:
         rolled the submap over (the caller rebuilds the chain)."""
         new_roll = False
         rolled = blk.tail
-        poses, matches, inserteds, mcounts, droppeds = vals
+        poses, matches, inserteds, mcounts, droppeds = vals[:5]
+        if len(vals) > 5:
+            timing.count("mapper/icp_trips_active", int(vals[5].sum()))
+        self._count_first_scan_trips()
         ml = self.params.mapper.mapper_localizer
         sc = self.submaps
         block_drops = 0
@@ -367,7 +383,7 @@ class Mapper:
             if bool(inserteds[k]):
                 if not rolled:
                     sc.active_submap.map = self._state.map
-                    with _STATS.time("mapper/post_insert"):
+                    with timing.span("mapper/post_insert"):
                         changed = sc.post_insert_update(merged_thunk, pose, q.time,
                                                         active_count=int(mcounts[k]))
                     if changed:
@@ -383,14 +399,13 @@ class Mapper:
                 else:
                     # Records behind a rollover: their device fusion landed
                     # in the closed submap; re-fuse them into the fresh one.
-                    with _STATS.time("mapper/rollover_tail_insert"):
-                        if blk.tail and not new_roll:
-                            sc.overlap_buffer.append((merged_thunk, pose, q.time))
-                            sc.active_submap.n_scans += 1
-                            sc.num_scans_merged_in_active += 1
-                            tail_mask[k] = True
-                        else:
-                            sc.insert_scan(merged_thunk, pose, q.time)
+                    if blk.tail and not new_roll:
+                        sc.overlap_buffer.append((merged_thunk, pose, q.time))
+                        sc.active_submap.n_scans += 1
+                        sc.num_scans_merged_in_active += 1
+                        tail_mask[k] = True
+                    else:
+                        sc.insert_scan(merged_thunk, pose, q.time)
                 self.last_insertion_pose = pose.copy()
                 self.stats.insertions += 1
             self._finalize(Finalized(time=q.time, pose=pose, merged=merged_thunk,
@@ -399,40 +414,47 @@ class Mapper:
         if tail_mask.any():
             # One insert for all of this block's post-rollover records, then
             # one lifecycle re-check at the last record's pose.
-            with _STATS.time("mapper/rollover_tail_insert"):
-                rec_mask = np.zeros(blk.outs.merged.mask.shape[0], dtype=bool)
-                rec_mask[:len(tail_mask)] = tail_mask
-                self._state = pipeline.chain_insert_block(
-                    self._state, blk.outs.merged,
-                    to_device(rec_mask, self.device, dtype=torch.bool),
-                    self.pipe_cfg.map_voxel_size)
-                sc.active_submap.map = self._state.map
-                last_k = int(np.nonzero(tail_mask)[0][-1])
-                if sc.lifecycle_check(poses[last_k].astype(np.float32),
-                                      blk.items[last_k].time, active_count=0):
-                    new_roll = True
+            rec_mask = np.zeros(blk.outs.merged.mask.shape[0], dtype=bool)
+            rec_mask[:len(tail_mask)] = tail_mask
+            self._state = pipeline.chain_insert_block(
+                self._state, blk.outs.merged,
+                to_device(rec_mask, self.device, dtype=torch.bool),
+                self.pipe_cfg.map_voxel_size)
+            sc.active_submap.map = self._state.map
+            last_k = int(np.nonzero(tail_mask)[0][-1])
+            if sc.lifecycle_check(poses[last_k].astype(np.float32),
+                                  blk.items[last_k].time, active_count=0):
+                new_roll = True
         mb = self.params.mapper.map_builder
         if block_drops > 0 and mb.is_overflow_eviction_enabled and not rolled:
             # Overflow policy: this block dropped voxels — evict a fraction of
             # the chain-end table so later scans land.
-            if mb.overflow_evict_policy == "weight":
-                evicted = vm.evict_low_weight(self._state.map,
-                                              keep_fraction=mb.overflow_evict_keep_fraction)
-            else:
-                evicted = vm.evict_far(self._state.map,
-                                       to_device(self.map_to_range_sensor[:3, 3], self.device),
-                                       keep_fraction=mb.overflow_evict_keep_fraction)
+            with timing.span("mapper/evict"):
+                if mb.overflow_evict_policy == "weight":
+                    evicted = vm.evict_low_weight(
+                        self._state.map, keep_fraction=mb.overflow_evict_keep_fraction)
+                else:
+                    evicted = vm.evict_far(
+                        self._state.map, to_device(self.map_to_range_sensor[:3, 3], self.device),
+                        keep_fraction=mb.overflow_evict_keep_fraction)
             self._state = pipeline.MapState(map=evicted, pose=self._state.pose,
                                             last_insertion_pose=self._state.last_insertion_pose)
         return new_roll
 
+    def _count_first_scan_trips(self) -> None:
+        while self._first_scan_trips and self._first_scan_trips[0].ready():
+            timing.count("mapper/icp_trips_active",
+                         int(self._first_scan_trips.pop(0).wait()[0]))
+
+    @timing.traced("mapper")
     def flush(self) -> None:
         """Dispatch any partial block and block until the reader thread has
         drained every in-flight block's bookkeeping."""
         with self._cv:
             self._dispatch_block()
-            while self._inflight:
-                self._cv.wait(timeout=0.5)
+            with timing.span("mapper/flush_wait"):
+                while self._inflight:
+                    self._cv.wait(timeout=0.5)
 
     def _finalize(self, rec: Finalized) -> None:
         """Append a per-scan record, evicting (and counting) past the cap."""
@@ -451,6 +473,7 @@ class Mapper:
 
     # -- the hot path ---------------------------------------------------------
 
+    @timing.traced("mapper")
     def add_range_measurement(self, raw_scan: PointCloud, time: float) -> bool:
         """≙ Mapper::addRangeMeasurement (Mapper.cpp:168-505).  Enqueues the
         scan and returns without waiting for the device; host bookkeeping
@@ -468,6 +491,9 @@ class Mapper:
             self._state, out = pipeline.mapper_step(
                 self._state, raw_scan, to_device(self.map_to_range_sensor, self.device),
                 self.pipe_cfg, True)
+            if timing.active():
+                # Counted with the next block's readback, which follows it.
+                self._first_scan_trips.append(HostCopy([out.res.iterations]))
             self.submaps.note_fused_insert()
             self.map_to_range_sensor_prev = self.map_to_range_sensor.copy()
             self.map_to_range_sensor_buffer.push(time, self.map_to_range_sensor)
@@ -531,7 +557,8 @@ class Mapper:
                 and self.init_time is not None
                 and (time - self.init_time) < ml.map_merge_delay_in_seconds))
         self._queue.append(_QueuedScan(time=time, scan=raw_scan, motion=motion,
-                                       insert_enable=not merge_suppressed))
+                                       insert_enable=not merge_suppressed,
+                                       scan_id=timing.current_scan()))
         self.last_measurement_time = time
         self.stats.scans_processed += 1
         if len(self._queue) >= self.readback_lag:

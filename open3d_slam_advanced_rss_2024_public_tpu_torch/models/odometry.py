@@ -27,9 +27,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import hashgrid
+from ..ops import cuda_nn, hashgrid
 from ..ops.registration import icp as icp_mod
 from ..ops.registration.icp import ICPConfig
+from ..utils import timing
 from ..utils.config import SlamParameters
 from ..utils.device import HostCopy, resolve_device
 from ..utils.pointcloud import PointCloud
@@ -83,6 +84,7 @@ class LidarOdometry:
         self.prev_grid = hashgrid.passthrough(cloud, self.icp_cfg.max_correspondence_dist)
         self._prev_ref = icp_mod.prepare_reference(self.icp_cfg, self.prev_grid)
 
+    @timing.traced("odometry")
     def add_range_scan(self, raw_scan: PointCloud, time: float) -> bool:
         """≙ LidarOdometry::addRangeScan (Odometry.cpp:29-95)."""
         cloud = self._preprocess(raw_scan.to(self.device))
@@ -90,13 +92,21 @@ class LidarOdometry:
             self._set_reference(cloud)
             self.buffer.push(time, self.odom_to_range_sensor)
             return True
-        res = icp_mod.register(cloud, self.prev_grid,
-                               torch.eye(4, dtype=torch.float32, device=self.device),
-                               self.icp_cfg, self._prev_ref,
-                               # Read back below, so the loop may poll and stop.
-                               poll_every=icp_mod.POLL_EVERY)
+        with timing.span("odometry/register", launches=cuda_nn.launch_count):
+            res = icp_mod.register(cloud, self.prev_grid,
+                                   torch.eye(4, dtype=torch.float32, device=self.device),
+                                   self.icp_cfg, self._prev_ref,
+                                   # Read back below, so the loop may poll and stop.
+                                   poll_every=icp_mod.POLL_EVERY)
         self._set_reference(cloud)
-        dT, fitness = HostCopy([res.transform, res.match_ratio]).wait()
+        back = [res.transform, res.match_ratio]
+        if timing.active():
+            back.append(res.iterations)  # the trips that moved the pose
+        with timing.span("odometry/readback_wait"):
+            vals = HostCopy(back).wait()
+        dT, fitness = vals[:2]
+        if len(vals) > 2:
+            timing.count("odometry/icp_trips_active", int(vals[2]))
         dT = np.array(dT, np.float32)
         ok = True
         if np.linalg.norm(dT[:3, 3]) > ODOMETRY_JUMP_THRESHOLD_M:

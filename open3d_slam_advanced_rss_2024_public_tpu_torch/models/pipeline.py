@@ -19,6 +19,7 @@ import torch
 from ..ops import voxel_map
 from ..ops.registration import icp as icp_mod
 from ..ops.registration.icp import ICPConfig, ICPResult
+from ..utils import timing
 from ..utils.device import to_device
 from ..utils.pointcloud import PointCloud
 from . import scan_processing
@@ -109,19 +110,23 @@ def _gate(cfg: PipelineConfig, res: ICPResult, estimate_T: Tensor, empty_map: Te
 
 def _step(state: MapState, raw_scan: PointCloud, estimate_T: Tensor,
           cfg: PipelineConfig, insert_enable: Tensor):
-    wide, match = _preprocess(raw_scan, cfg)
-    _, grid = scan_processing.crop_submap_and_index(
-        state.map.cloud, estimate_T[:3, 3], min_radius=0.0,
-        max_radius=cfg.crop_max_radius, match_dist=cfg.icp.max_correspondence_dist,
-        capacity=cfg.map_patch_capacity,
-        build_hash=cfg.icp.matcher == "hashgrid")
-    res = icp_mod.register(match, grid, estimate_T, cfg.icp)
-    empty_map = state.map.count() == 0
-    T, insert_ok = _gate(cfg, res, estimate_T, empty_map, state.last_insertion_pose,
-                         insert_enable)
-    merged = wide.transform(T)
-    new_map = voxel_map.insert(state.map, merged.with_mask(merged.mask & insert_ok),
-                               cfg.map_voxel_size)
+    with timing.span("mapper/preprocess"):
+        wide, match = _preprocess(raw_scan, cfg)
+    with timing.span("mapper/reference"):
+        _, grid = scan_processing.crop_submap_and_index(
+            state.map.cloud, estimate_T[:3, 3], min_radius=0.0,
+            max_radius=cfg.crop_max_radius, match_dist=cfg.icp.max_correspondence_dist,
+            capacity=cfg.map_patch_capacity,
+            build_hash=cfg.icp.matcher == "hashgrid")
+    with timing.span("mapper/icp"):
+        res = icp_mod.register(match, grid, estimate_T, cfg.icp)
+        empty_map = state.map.count() == 0
+        T, insert_ok = _gate(cfg, res, estimate_T, empty_map, state.last_insertion_pose,
+                             insert_enable)
+    with timing.span("mapper/insert"):
+        merged = wide.transform(T)
+        new_map = voxel_map.insert(state.map, merged.with_mask(merged.mask & insert_ok),
+                                   cfg.map_voxel_size)
     new_state = MapState(map=new_map, pose=T,
                          last_insertion_pose=torch.where(insert_ok, T,
                                                          state.last_insertion_pose))
@@ -216,31 +221,35 @@ def mapper_step_block_shared_ref(state: MapState, scans: PointCloud,
     and ONE fused insert for the block.  As in the JAX package, the first
     block after an empty map trusts the odometry estimates and inserts
     them."""
-    wides, matches = _preprocess(scans, cfg)
-    _, grid = scan_processing.crop_submap_and_index(
-        state.map.cloud, state.pose[:3, 3], min_radius=0.0,
-        max_radius=cfg.crop_max_radius + cfg.block_ref_margin,
-        match_dist=cfg.icp.max_correspondence_dist,
-        capacity=cfg.map_patch_capacity,
-        build_hash=cfg.icp.matcher == "hashgrid")
-    nn_ref = icp_mod.prepare_reference(cfg.icp, grid)
+    with timing.span("mapper/preprocess"):
+        wides, matches = _preprocess(scans, cfg)
+    with timing.span("mapper/reference"):
+        _, grid = scan_processing.crop_submap_and_index(
+            state.map.cloud, state.pose[:3, 3], min_radius=0.0,
+            max_radius=cfg.crop_max_radius + cfg.block_ref_margin,
+            match_dist=cfg.icp.max_correspondence_dist,
+            capacity=cfg.map_patch_capacity,
+            build_hash=cfg.icp.matcher == "hashgrid")
+        nn_ref = icp_mod.prepare_reference(cfg.icp, grid)
     empty_map = state.map.count() == 0
     pose, last_ins = state.pose, state.last_insertion_pose
     results, Ts, oks = [], [], []
-    for k in range(scans.xyz.shape[0]):
-        estimate_T = pose @ odom_deltas[k]
-        res = icp_mod.register(matches.map(lambda t: t[k]), grid, estimate_T, cfg.icp,
-                               nn_ref)
-        pose, insert_ok = _gate(cfg, res, estimate_T, empty_map, last_ins,
-                                insert_enables[k])
-        last_ins = torch.where(insert_ok, pose, last_ins)
-        results.append(res)
-        Ts.append(pose)
-        oks.append(insert_ok)
-    Ts, insert_oks = torch.stack(Ts), torch.stack(oks)
-    mergeds = wides.transform(Ts)
-    new_map = voxel_map.insert(state.map, _flat_block(mergeds, insert_oks),
-                               cfg.map_voxel_size)
+    with timing.span("mapper/icp"):
+        for k in range(scans.xyz.shape[0]):
+            estimate_T = pose @ odom_deltas[k]
+            res = icp_mod.register(matches.map(lambda t: t[k]), grid, estimate_T, cfg.icp,
+                                   nn_ref)
+            pose, insert_ok = _gate(cfg, res, estimate_T, empty_map, last_ins,
+                                    insert_enables[k])
+            last_ins = torch.where(insert_ok, pose, last_ins)
+            results.append(res)
+            Ts.append(pose)
+            oks.append(insert_ok)
+    with timing.span("mapper/insert"):
+        Ts, insert_oks = torch.stack(Ts), torch.stack(oks)
+        mergeds = wides.transform(Ts)
+        new_map = voxel_map.insert(state.map, _flat_block(mergeds, insert_oks),
+                                   cfg.map_voxel_size)
     K = Ts.shape[0]
     outs = StepOutput(
         res=ICPResult(**{f.name: torch.stack([getattr(r, f.name) for r in results])

@@ -34,10 +34,10 @@ import numpy as np
 
 from ..ops import normals as normals_ops
 from ..utils import io as io_utils
+from ..utils import timing
 from ..utils.config import SlamParameters
 from ..utils.device import resolve_device, to_device
 from ..utils.pointcloud import PointCloud
-from ..utils.timing import GLOBAL_STATS as _STATS
 from . import motion_compensation
 from .mapper import Mapper
 from .odometry import LidarOdometry
@@ -49,6 +49,7 @@ from .pose_graph import OptimizationProblem
 class TimestampedScan:
     scan: PointCloud
     time: float
+    scan_id: Optional[int] = None  # the tracer's scan id
 
 
 class SlamWrapper:
@@ -83,6 +84,8 @@ class SlamWrapper:
         self.trajectory_poses: List[np.ndarray] = []
         # Online bookkeeping so finish_processing can drain exactly.
         self._scans_accepted = 0
+        # Every scan taken gets the next number: the tracer's scan id.
+        self.scans_taken = 0
         # Which threads ran feature computation (the online smoke run checks
         # that the map worker never does).
         self._feature_compute_threads: List[str] = []
@@ -97,8 +100,9 @@ class SlamWrapper:
     def add_range_scan(self, scan: PointCloud, time: float) -> bool:
         """Online entry: enqueue for the odometry worker
         (≙ addRangeScan, SlamWrapper.cpp:217-251)."""
+        self.scans_taken += 1
         try:
-            self.odometry_queue.put_nowait(TimestampedScan(scan, time))
+            self.odometry_queue.put_nowait(TimestampedScan(scan, time, self.scans_taken))
             self._scans_accepted += 1
             return True
         except queue.Full:
@@ -131,6 +135,8 @@ class SlamWrapper:
         """Deterministic single-step: one scan (+ paired odometry pose)
         through odometry -> mapping -> features -> loop closure.
         ≙ usePairForRegistration + offline workers (SlamWrapper.cpp:517-905)."""
+        self.scans_taken += 1
+        timing.set_scan(self.scans_taken)
         scan = scan.to(self.device)
         if odom_pose is not None:
             self.add_odometry_pose(time, odom_pose)
@@ -180,13 +186,15 @@ class SlamWrapper:
         mc = self.params.motion_compensation
         if not mc.is_undistort_scan:
             return scan
-        twist = motion_compensation.estimate_twist_from_buffer(
-            self.mapper.odom_buffer, mc.scan_duration, mc.num_poses_vel_estimation,
-            calibration=self.mapper.calibration)
-        return motion_compensation.undistort(scan.to(self.device),
-                                             to_device(twist, self.device),
-                                             mc.is_spinning_clockwise)
+        with timing.span("deskew"):
+            twist = motion_compensation.estimate_twist_from_buffer(
+                self.mapper.odom_buffer, mc.scan_duration, mc.num_poses_vel_estimation,
+                calibration=self.mapper.calibration)
+            return motion_compensation.undistort(scan.to(self.device),
+                                                 to_device(twist, self.device),
+                                                 mc.is_spinning_clockwise)
 
+    @timing.traced("loop_closure")
     def compute_features_if_ready(self) -> None:
         """≙ computeFeaturesIfReady (SlamWrapper.cpp:1039-1047).  Online
         this runs on its OWN worker thread, so descriptor work on finished
@@ -200,10 +208,10 @@ class SlamWrapper:
             # Recorded before the pass: it empties the queue as it goes, and
             # a caller that waits for an empty queue reads this list next.
             self._feature_compute_threads.append(threading.current_thread().name)
-            with _STATS.time("slam/features"):
+            with timing.span("loop_closure/features"):
                 sc.compute_features_for_finished()
             mp = self.params.mapper
-            with _STATS.time("slam/odom_constraints"):
+            with timing.span("loop_closure/odometry_constraints"):
                 odo = compute_odometry_constraints(
                     sc.submaps, finished,
                     map_voxel_size=mp.map_builder.map_voxel_size,
@@ -212,6 +220,7 @@ class SlamWrapper:
         with self._lc_lock:
             self.optimization.insert_odometry_constraints(odo)
 
+    @timing.traced("loop_closure")
     def attempt_loop_closures_if_ready(self) -> None:
         """≙ attemptLoopClosuresIfReady + loopClosureWorker
         (SlamWrapper.cpp:1049-1103)."""
@@ -221,7 +230,7 @@ class SlamWrapper:
             return
         new_constraints = []
         with self._lc_lock:
-            with _STATS.time("slam/lc_build"):
+            with timing.span("loop_closure/candidates"):
                 for idx, _ in candidates:
                     new_constraints.extend(
                         self.place_recognition.build_loop_closure_constraints(
@@ -236,7 +245,7 @@ class SlamWrapper:
             # Dispatch the pose-graph solve; the applier resolves its
             # readback on the next tick.
             go = self.params.mapper.global_optimization
-            with _STATS.time("slam/pose_graph_solve"):
+            with timing.span("loop_closure/solve"):
                 handle = self.optimization.solve_async(
                     [s.pose for s in sc.submaps],
                     loop_closure_preference=go.loop_closure_preference,
@@ -246,6 +255,7 @@ class SlamWrapper:
             self._pending_increments = handle
             self.optimized_graph_available = True
 
+    @timing.traced("loop_closure")
     def check_if_optimized_graph_available(self) -> None:
         """≙ checkIfOptimizedGraphAvailable + updateSubmapsAndTrajectory
         (SlamWrapper.cpp:1000, 1105-1140)."""
@@ -257,28 +267,27 @@ class SlamWrapper:
         self.optimized_graph_available = False
         if handle is None:
             return
-        incs = self.optimization.resolve_async(handle)
-        sc = self.mapper.submaps
-        # Submap transforms mutate the active table: hand truth back from
-        # the chained device state first.
-        with _STATS.time("slam/lc_materialize"):
+        with timing.span("loop_closure/apply"):
+            incs = self.optimization.resolve_async(handle)
+            sc = self.mapper.submaps
+            # Submap transforms mutate the active table: hand truth back from
+            # the chained device state first.
             self.mapper.materialize()
-        with _STATS.time("slam/lc_apply_transforms"):
             sc.apply_transforms(incs)
-        # Correct the live pose by the active submap's increment.
-        active_id = sc.active_submap.submap_id
-        if active_id in incs:
-            correction = incs[active_id]
-            self.mapper.loop_closure_update(correction)
-            self.trajectory_poses = [
-                (correction @ p).astype(np.float32) for p in self.trajectory_poses]
-        # Applied loop closures become odometry-grade (certain) edges so the
-        # next solve doesn't re-litigate them (≙ SlamWrapper.cpp:1128-1139).
-        for c in self.optimization.loop_closure_constraints:
-            c.is_odometry = True
-        self.optimization.insert_odometry_constraints(
-            self.optimization.loop_closure_constraints)
-        self.optimization.clear_loop_closure_constraints()
+            # Correct the live pose by the active submap's increment.
+            active_id = sc.active_submap.submap_id
+            if active_id in incs:
+                correction = incs[active_id]
+                self.mapper.loop_closure_update(correction)
+                self.trajectory_poses = [
+                    (correction @ p).astype(np.float32) for p in self.trajectory_poses]
+            # Applied loop closures become odometry-grade (certain) edges so the
+            # next solve doesn't re-litigate them (≙ SlamWrapper.cpp:1128-1139).
+            for c in self.optimization.loop_closure_constraints:
+                c.is_odometry = True
+            self.optimization.insert_odometry_constraints(
+                self.optimization.loop_closure_constraints)
+            self.optimization.clear_loop_closure_constraints()
 
     # ------------------------------------------------------------ online mode
 
@@ -297,6 +306,7 @@ class SlamWrapper:
                     item = self.odometry_queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                timing.set_scan(item.scan_id)
                 if not self.use_external_odometry:
                     self.odometry.add_range_scan(item.scan, item.time)
                     self.mapper.odom_buffer.push(item.time,
@@ -315,24 +325,21 @@ class SlamWrapper:
                 except queue.Empty:
                     # Keep draining readbacks that land while the stream is
                     # quiet, so the pose stays fresh.
-                    with _STATS.time("slam/idle_poll"):
-                        self.mapper.poll()
+                    self.mapper.poll()
                     self._consume_finalized()
                     continue
+                timing.set_scan(item.scan_id)
                 scan = self._motion_compensate(item.scan)
-                with _STATS.time("slam/map_step"):
-                    self.mapper.add_range_measurement(scan, item.time)
+                self.mapper.add_range_measurement(scan, item.time)
                 # When the intake looks idle, poll (release the partial
                 # block once the device pipeline is empty) instead of a
                 # blocking flush.
                 if self.mapping_queue.empty() and self.odometry_queue.empty():
-                    with _STATS.time("slam/idle_poll"):
-                        self.mapper.poll()
+                    self.mapper.poll()
                 self._consume_finalized()
                 # Features are computed on the feature worker; the map
                 # worker only applies finished pose-graph results.
-                with _STATS.time("slam/apply_optimized"):
-                    self.check_if_optimized_graph_available()
+                self.check_if_optimized_graph_available()
 
         def dense_worker():
             # ≙ denseMapWorker (SlamWrapper.cpp:1014-1037).
@@ -341,8 +348,7 @@ class SlamWrapper:
                     scan, pose = self.dense_queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
-                with _STATS.time("slam/dense_insert"):
-                    self._insert_dense(scan, pose)
+                self._insert_dense(scan, pose)
 
         def feature_worker():
             while not self._stop.is_set():
@@ -413,31 +419,27 @@ class SlamWrapper:
         # Every accepted scan must have produced a trajectory entry, and the
         # queues must be empty: queue.empty() alone races with the item a
         # worker already popped.
-        with _STATS.time("slam/finish_drain"):
-            while _time.time() < deadline:
-                drained = (self.odometry_queue.empty() and self.mapping_queue.empty()
-                           and self.dense_queue.empty())
-                if drained:
-                    # Flush the trailing (partial) lag block and drain it.
-                    self.mapper.flush()
-                    self._consume_finalized(dense_inline=not self._workers)
-                if drained and (not self._workers
-                                or len(self.trajectory_poses) >= self._scans_accepted):
-                    break
-                _time.sleep(0.01)
-            self.mapper.materialize()
+        while _time.time() < deadline:
+            drained = (self.odometry_queue.empty() and self.mapping_queue.empty()
+                       and self.dense_queue.empty())
+            if drained:
+                # Flush the trailing (partial) lag block and drain it.
+                self.mapper.flush()
+                self._consume_finalized(dense_inline=not self._workers)
+            if drained and (not self._workers
+                            or len(self.trajectory_poses) >= self._scans_accepted):
+                break
+            _time.sleep(0.01)
+        self.mapper.materialize()
         sc = self.mapper.submaps
         if sc.submaps and sc.active_submap.n_scans > 0:
             # Force-finish the active submap so it gets features too.
             sc.finished_queue.append(
                 (sc.active_idx, self.trajectory_times[-1] if self.trajectory_times else 0.0))
-            with _STATS.time("slam/finish_features"):
-                self.compute_features_if_ready()
+            self.compute_features_if_ready()
             if self.params.mapper.mapper_localizer.is_attempt_loop_closures:
-                with _STATS.time("slam/finish_lc"):
-                    self.attempt_loop_closures_if_ready()
-                with _STATS.time("slam/finish_apply"):
-                    self.check_if_optimized_graph_available()
+                self.attempt_loop_closures_if_ready()
+                self.check_if_optimized_graph_available()
 
     # ------------------------------------------------------------ persistence
 

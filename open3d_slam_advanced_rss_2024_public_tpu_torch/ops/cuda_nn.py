@@ -58,6 +58,11 @@ def reset_launches() -> None:
     launches = 0
 
 
+def launch_count() -> int:
+    """``launches`` now: the tracer notes it where a span enqueues sweeps."""
+    return launches
+
+
 @dataclasses.dataclass(frozen=True)
 class NNRef:
     """A reference prepared for ``nn``.  ``points`` are the refs as given;

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...utils import se3
+from ...utils import se3, timing
 from ...utils.device import HostCopy
 from ...utils.pointcloud import PointCloud
 from .. import bruteforce, cuda_nn, hashgrid
@@ -405,9 +405,11 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
         return (mean[0] < cfg.min_diff_rot) & (mean[1] < cfg.min_diff_trans)
 
     polls = []
+    trips = 0
     for trip in range(cfg.max_iterations):
         if any(p.ready() and bool(p.host[0]) for p in polls):
             break
+        trips += 1
         active = ((it < smooth) | ~converged_of(ring)) & ~_out_of_bounds(cfg, T, init_inv)
         if poll_every > 0 and trip > 0 and trip % poll_every == 0:
             polls.append(HostCopy([~active]))
@@ -419,6 +421,10 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
         match_ratio = torch.where(active, mr, match_ratio)
         rmse = torch.where(active, rm, rmse)
         it = it + active.to(torch.int32)
+    # The trips enqueued; ``iterations`` counts those that moved the pose.
+    # Only the Mapper's and the odometry's calls are counted: their
+    # ``*_active_trips_pct`` read the pair.
+    timing.count_in_layer("icp_trips_dispatched", trips, layers=("mapper", "odometry"))
     diverged = _out_of_bounds(cfg, T, init_inv)
     if cfg.minimizer == "similarity":
         # Keep the estimated scale: factor T = s R | t, re-orthonormalize R
