@@ -3464,7 +3464,8 @@ def main() -> None:
         fail(f"the main path synchronised with the device {len(syncs)} times, at "
              + ", ".join(sorted({f"{w.filename}:{w.lineno}" for w in syncs})))
     # ICP iterations per scan, as the JAX package's while loop would run
-    # them (the port runs max_iterations trips and freezes the carry after).
+    # them (the port freezes the carry from convergence on, and stops
+    # enqueuing trips once a polled done flag has landed).
     iterations = []
     register = icp.register
 

@@ -108,6 +108,14 @@ def _gate(cfg: PipelineConfig, res: ICPResult, estimate_T: Tensor, empty_map: Te
     return T, insert_ok
 
 
+def _poll_every(cfg: PipelineConfig) -> int:
+    """Trips between the non-blocking looks at the ICP loop's done flag:
+    ``register`` stops enqueuing trips once a look that has landed shows
+    the loop converged, with the fixed-trip result.  The sharded matcher
+    runs every trip on every rank, so it never polls."""
+    return 0 if cfg.icp.matcher == "sharded" else icp_mod.POLL_EVERY
+
+
 def _step(state: MapState, raw_scan: PointCloud, estimate_T: Tensor,
           cfg: PipelineConfig, insert_enable: Tensor):
     with timing.span("mapper/preprocess"):
@@ -119,7 +127,8 @@ def _step(state: MapState, raw_scan: PointCloud, estimate_T: Tensor,
             capacity=cfg.map_patch_capacity,
             build_hash=cfg.icp.matcher == "hashgrid")
     with timing.span("mapper/icp"):
-        res = icp_mod.register(match, grid, estimate_T, cfg.icp)
+        res = icp_mod.register(match, grid, estimate_T, cfg.icp,
+                               poll_every=_poll_every(cfg))
         empty_map = state.map.count() == 0
         T, insert_ok = _gate(cfg, res, estimate_T, empty_map, state.last_insertion_pose,
                              insert_enable)
@@ -238,7 +247,7 @@ def mapper_step_block_shared_ref(state: MapState, scans: PointCloud,
         for k in range(scans.xyz.shape[0]):
             estimate_T = pose @ odom_deltas[k]
             res = icp_mod.register(matches.map(lambda t: t[k]), grid, estimate_T, cfg.icp,
-                                   nn_ref)
+                                   nn_ref, poll_every=_poll_every(cfg))
             pose, insert_ok = _gate(cfg, res, estimate_T, empty_map, last_ins,
                                     insert_enables[k])
             last_ins = torch.where(insert_ok, pose, last_ins)

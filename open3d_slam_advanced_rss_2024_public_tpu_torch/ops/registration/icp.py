@@ -8,14 +8,14 @@ test on the host, and a ``.item()`` per iteration would make the host wait
 on the device for every scan.  So the loop runs ``max_iterations`` trips
 and a device-side ``active`` flag freezes the carry through
 ``torch.where`` once the differential checker fires: the transform and
-the iteration count are those of the while loop, at the cost of the
-iterations after convergence (their launches run and are discarded).
-Callers that run long loops off the Mapper's path (the constraint builders:
-40 and 100 trips) pass ``poll_every``: the converged flag is then copied to
-pinned host memory every few trips without waiting, and the loop stops
+the iteration count are those of the while loop.  The hot callers (the
+Mapper's scan-to-map step, the odometry, the constraint builders, the ICP
+chain) pass ``poll_every``: the converged flag is then copied to pinned
+host memory every few trips without waiting, and the loop stops
 dispatching once a copy that has landed says converged.  The host still
 never waits, and the result is the fixed-trip result, because the carry is
-frozen from the converged trip on.
+frozen from the converged trip on; where no copy has landed, the loop runs
+all ``max_iterations`` trips and discards those after convergence.
 
 The whole surface of the JAX package's ICP loop is here: every minimizer
 (point-to-plane with its 4-DOF and 2-D restrictions, point-to-point, GICP,
@@ -382,8 +382,9 @@ def register(source: PointCloud, ref_grid: HashGrid, init_T: Tensor,
     differential checker, the counter, the bound checker) stay on the
     device.  ``poll_every`` > 0 stops dispatching trips once a non-blocking
     look at the done flag, taken every ``poll_every`` trips, shows that
-    the loop has stopped (same result, fewer launches); the sharded matcher
-    refuses it (each rank would stop on its own clock)."""
+    the loop has stopped (same result, fewer launches); the Mapper's step
+    and the odometry pass ``POLL_EVERY``.  The sharded matcher refuses it
+    (each rank would stop on its own clock)."""
     check_supported(cfg)
     if poll_every > 0 and cfg.matcher == "sharded":
         raise ValueError("the sharded matcher runs every trip on every rank: "

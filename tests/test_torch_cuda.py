@@ -184,13 +184,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                                         device=cuda_device), 0.5)
 
 
-@pytest.mark.cuda
-def test_mapper_on_cuda_rolls_over_and_matches_the_cpu_twin_path(cuda_device):
-    # Twelve 2048-point scans, lag-4 blocks and a 3 m submap size: the
-    # kernels, the CUDA-event readbacks and the rollover/tail re-fusion all
-    # run on the card; the same scans through the plain twins on the CPU.
+def _mapper_scene():
+    # Twelve 2048-point scans, lag-4 blocks and a 3 m submap size, so that
+    # the Mapper rolls over.
     from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
-    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import Mapper
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
 
     params = load_parameters({"mapper": {
@@ -206,20 +203,69 @@ def test_mapper_on_cuda_rolls_over_and_matches_the_cpu_twin_path(cuda_device):
     g = torch.Generator().manual_seed(6)
     scans = [synthetic.render_scan(world, gt[i], g, n_points=2048, max_range=25.0, noise=0.004)
              for i in range(12)]
-    poses = {}
-    for dev in (cuda_device, torch.device("cpu")):
-        m = Mapper(params, device=dev)
-        m.set_map_to_range_sensor(gt[0])
-        for i, s in enumerate(scans):
-            m.odom_buffer.push(0.1 * i, gt[i])
-            m.add_range_measurement(s, 0.1 * i)
-        m.flush()
-        assert len(m.submaps.submaps) > 1
-        assert int(m.get_assembled_map().mask.sum()) > 0
-        poses[dev.type] = np.stack([p for _, p in m.map_to_range_sensor_buffer.items()])
+    return params, gt, scans
+
+
+def _run_mapper(params, gt, scans, dev):
+    """The scans through a Mapper on ``dev``; its poses, one a scan."""
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import Mapper
+
+    m = Mapper(params, device=dev)
+    m.set_map_to_range_sensor(gt[0])
+    for i, s in enumerate(scans):
+        m.odom_buffer.push(0.1 * i, gt[i])
+        m.add_range_measurement(s, 0.1 * i)
+    m.flush()
+    assert len(m.submaps.submaps) > 1
+    assert int(m.get_assembled_map().mask.sum()) > 0
+    return np.stack([p for _, p in m.map_to_range_sensor_buffer.items()])
+
+
+@pytest.mark.cuda
+def test_mapper_on_cuda_rolls_over_and_matches_the_cpu_twin_path(cuda_device):
+    # The kernels, the CUDA-event readbacks and the rollover/tail re-fusion
+    # all run on the card; the same scans through the plain twins on the CPU.
+    params, gt, scans = _mapper_scene()
+    poses = {dev.type: _run_mapper(params, gt, scans, dev)
+             for dev in (cuda_device, torch.device("cpu"))}
     assert np.isfinite(poses["cuda"]).all()
     err = np.linalg.norm(poses["cuda"][:, :3, 3] - np.stack(gt)[:, :3, 3], axis=-1)
     assert err.max() < 0.03
     # ICP over sparse scans turns rounding differences (the order of the
     # index_add_ sums) into mm-level pose differences.
     assert np.abs(poses["cuda"][:, :3, 3] - poses["cpu"][:, :3, 3]).max() < 0.01
+
+
+@pytest.mark.cuda
+def test_mapper_on_cuda_stops_its_icp_loops_early_with_the_fixed_trip_poses(cuda_device,
+                                                                            monkeypatch):
+    # The polled done flag lands on the card while the host still enqueues,
+    # so most of the Mapper's trips are never dispatched; forcing
+    # poll_every=0 gives the fixed-trip loops on the same scans.
+    import types
+
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models import pipeline
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import icp_config_from_params
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
+    from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import timing
+
+    params, gt, scans = _mapper_scene()
+    dispatched, poses = {}, {}
+    for mode in ("polled", "fixed"):
+        with monkeypatch.context() as m:
+            if mode == "fixed":
+                m.setattr(pipeline, "icp_mod", types.SimpleNamespace(
+                    register=icp.register, prepare_reference=icp.prepare_reference,
+                    POLL_EVERY=0))
+            timing.reset()
+            timing.enable()
+            try:
+                poses[mode] = _run_mapper(params, gt, scans, cuda_device)
+                dispatched[mode] = timing.records()["counts"]["mapper/icp_trips_dispatched"]
+            finally:
+                timing.disable()
+                timing.reset()
+    # The order of the index_add_ sums differs from run to run on the card.
+    assert np.abs(poses["polled"][:, :3, 3] - poses["fixed"][:, :3, 3]).max() < 0.01
+    max_trips = icp_config_from_params(params).max_iterations
+    assert dispatched["polled"] < 0.5 * max_trips * len(scans) < dispatched["fixed"]

@@ -6,6 +6,8 @@ deltas.  The JAX package runs radius-moments normals in interpret mode
 (``normal_engine="moments_interpret"``) and the brute-force matcher, so
 the two run the same algorithm.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +19,10 @@ from open3d_slam_advanced_rss_2024_public_tpu.ops.registration import ICPConfig 
 from open3d_slam_advanced_rss_2024_public_tpu.utils.pointcloud import PointCloud as JCloud
 from open3d_slam_advanced_rss_2024_public_tpu_torch.frontends import synthetic
 from open3d_slam_advanced_rss_2024_public_tpu_torch.models import pipeline, scan_processing
+from open3d_slam_advanced_rss_2024_public_tpu_torch.models.mapper import _make_pad_scan
 from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import ICPConfig
-from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import convert
+from open3d_slam_advanced_rss_2024_public_tpu_torch.ops.registration import icp
+from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import convert, timing
 from open3d_slam_advanced_rss_2024_public_tpu_torch.utils import pointcloud as pc
 
 N = 2048
@@ -168,3 +172,56 @@ def test_chain_insert_block_matches_jax(scene):
     ka = np.sort(np.asarray(a.map.ptable)[np.asarray(ca.mask)])
     kb = np.sort(b.map.ptable.numpy()[cb.mask.numpy()])
     np.testing.assert_array_equal(kb, ka)
+
+
+def _mapper_run(tst, arrays, deltas):
+    """One scan through ``mapper_step``, then a full lag-4 block and a
+    padded one (three scans and the Mapper's pad scan) through
+    ``mapper_step_block_shared_ref``; the outputs and the Mapper's
+    dispatched ICP trips."""
+    timing.reset()
+    timing.enable()
+    try:
+        st, out = pipeline.mapper_step(tst, _tcloud(arrays[2]),
+                                       tst.pose @ torch.from_numpy(deltas[1]), TCFG)
+        runs = [(st, out)]
+        full = pc.stack([_tcloud(a) for a in arrays[2:2 + K]])
+        runs.append(pipeline.mapper_step_block_shared_ref(
+            tst, full, torch.from_numpy(np.stack(deltas[1:1 + K])),
+            torch.ones(K, dtype=torch.bool), TCFG))
+        real = [_tcloud(a) for a in arrays[3:2 + K]]
+        padded = pc.stack(real + [_make_pad_scan(real[0])] * (K - len(real)))
+        pad_deltas = deltas[2:1 + K] + [np.eye(4, dtype=np.float32)] * (K - len(real))
+        en = torch.tensor([True] * len(real) + [False] * (K - len(real)))
+        runs.append(pipeline.mapper_step_block_shared_ref(
+            st, padded, torch.from_numpy(np.stack(pad_deltas)), en, TCFG))
+        return runs, timing.records()["counts"]["mapper/icp_trips_dispatched"]
+    finally:
+        timing.disable()
+        timing.reset()
+
+
+def test_polled_mapper_loops_give_the_fixed_trip_results(scene, monkeypatch):
+    gt, arrays, deltas = scene
+    _, tst = _start(gt, arrays)
+    polled, polled_trips = _mapper_run(tst, arrays, deltas)
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "icp_mod", types.SimpleNamespace(
+            register=icp.register, prepare_reference=icp.prepare_reference, POLL_EVERY=0))
+        fixed, fixed_trips = _mapper_run(tst, arrays, deltas)
+    # Four registrations of 15 trips on each side: 1 + K + K.
+    assert fixed_trips == 15 * (1 + 2 * K)
+    assert polled_trips < fixed_trips
+    for (pst, pout), (fst, fout) in zip(polled, fixed):
+        for name in ("transform", "iterations", "converged", "match_ratio", "rmse"):
+            np.testing.assert_array_equal(getattr(pout.res, name).numpy(),
+                                          getattr(fout.res, name).numpy(), err_msg=name)
+        np.testing.assert_array_equal(pout.pose.numpy(), fout.pose.numpy())
+        np.testing.assert_array_equal(pout.inserted.numpy(), fout.inserted.numpy())
+        np.testing.assert_array_equal(pst.pose.numpy(), fst.pose.numpy())
+        pc_, fc = pst.map.cloud, fst.map.cloud
+        np.testing.assert_array_equal(pc_.mask.numpy(), fc.mask.numpy())
+        np.testing.assert_array_equal(pc_.xyz.numpy(), fc.xyz.numpy())
+        np.testing.assert_array_equal(pc_.normals.numpy(), fc.normals.numpy())
+    # Every real scan was inserted, and the pad scan was not.
+    assert bool(polled[0][1].inserted) and polled[2][1].inserted.tolist() == [True] * 3 + [False]
