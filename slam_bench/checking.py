@@ -7,7 +7,9 @@ instead the answers of the reference with the configuration's guarantee
 broken (every registration and solve returns its starting value: the
 mapper's pose is the odometry's guess, the odometry's motion the identity,
 the pose graph its starting poses), which is how ``control.py`` reads the
-upper ends of the limits.
+upper ends of the limits.  Each of the configuration's extensions that
+defines ``judge(capture, seq, config, device, control)`` adds its numbers,
+read the same two ways; each has to have its limit.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from . import spec
 from .reference import checks, geometry, se3
 
 MIN_SCANS = 3  # eligible scan samples a run needs before it can be judged
@@ -114,6 +117,17 @@ def judge(capture, seq, config: dict, device, control: bool = False,
         graph.append(checks.graph_gap(X, best) * 1e3)
     if graph:
         readings["graph_gap_mm"] = max(graph)
+    for name, numbers in spec.call(capture.extensions, "judge", capture, seq, config, device,
+                                   control).items():
+        taken = set(numbers) & (set(readings) | {"scans_judged"})
+        if taken:
+            raise ValueError(f"extension {name!r} reads {sorted(taken)}, "
+                             f"which the check reads already")
+        unlimited = set(numbers) - set(config["limits"])
+        if unlimited:
+            raise ValueError(f"extension {name!r} reads {sorted(unlimited)}, "
+                             f"which the configuration's limits do not name")
+        readings.update({k: float(v) for k, v in numbers.items()})
     readings["scans_judged"] = float(len(gaps["scan_gap_mm"]))
     return readings
 

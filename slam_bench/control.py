@@ -1,8 +1,9 @@
 """Readings for the limits of ``correct``: for each seed, one window of the
 cell and then the same comparison read twice, once of the program's answers
 and once of the control's (the reference with the configuration's guarantee
-broken: every registration and solve returns its starting value).  One JSON
-line a seed on standard output.  Not part of a benchmark run.
+broken: every registration and solve returns its starting value), the
+numbers of the configuration's extensions among them.  One JSON line a seed
+on standard output.  Not part of a benchmark run.
 
     python3 slam_bench/control.py --workload <cell> --seeds 11,12,13 --seconds 40
 """
@@ -14,9 +15,34 @@ import shutil
 import sys
 import time
 
-sys.path[0] = str(pathlib.Path(__file__).resolve().parents[1])
+if __name__ == "__main__":
+    sys.path[0] = str(pathlib.Path(__file__).resolve().parents[1])
 
 from slam_bench import checking, harness, spec  # noqa: E402
+
+
+def read_seed(cell: spec.Cell, seed: int, seconds: float, device: str,
+              data_root: str = None) -> dict:
+    """One seed's row: a window of the cell, then the program's and the
+    control's readings of its samples."""
+    m = harness.measure(cell, seed, seconds, False, device, time.perf_counter(), data_root)
+    details = []
+    t0 = time.perf_counter()
+    program = checking.judge(m.capture, m.seq, cell.config, device, details=details)
+    judge_s = time.perf_counter() - t0
+    row = {"workload": cell.name, "seed": seed, "scans": len(m.window.step_s),
+           "missions": m.window.missions, "setup_s": m.setup_s, "judge_s": judge_s,
+           "why_not": [x.why_not for x in m.capture.scans if x.why_not],
+           "program": program,
+           "control": checking.judge(m.capture, m.seq, cell.config, device, control=True),
+           "details": details,
+           "mission_stats": [{k: v for k, v in x.items() if k != "trajectory"}
+                             for x in m.capture.missions],
+           "closures": [x["closures"] for x in m.capture.missions if x["complete"]],
+           "ate_m": [harness.ate_m(x["trajectory"], m.seq.truth)
+                     for x in m.capture.missions if x["complete"]]}
+    shutil.rmtree(m.data_dir, ignore_errors=True)
+    return row
 
 
 def main(argv) -> int:
@@ -32,25 +58,7 @@ def main(argv) -> int:
         return 2
     cell = spec.cell(args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
-        m = harness.measure(cell, seed, args.seconds, False, "cuda", time.perf_counter())
-        details = []
-        t0 = time.perf_counter()
-        program = checking.judge(m.capture, m.seq, cell.config, "cuda", details=details)
-        judge_s = time.perf_counter() - t0
-        row = {"workload": cell.name, "seed": seed, "scans": len(m.window.step_s),
-               "missions": m.window.missions, "setup_s": m.setup_s, "judge_s": judge_s,
-               "why_not": [x.why_not for x in m.capture.scans if x.why_not],
-               "program": program,
-               "control": checking.judge(m.capture, m.seq, cell.config, "cuda", control=True),
-               "details": details,
-               "mission_stats": [{k: v for k, v in x.items() if k != "trajectory"}
-                                 for x in m.capture.missions],
-               "closures": [x["closures"] for x in m.capture.missions if x["complete"]],
-               "ate_m": [harness.ate_m(x["trajectory"], m.seq.truth)
-                         for x in m.capture.missions if x["complete"]]}
-        print(json.dumps(row), flush=True)
-        shutil.rmtree(m.data_dir, ignore_errors=True)
-        del m
+        print(json.dumps(read_seed(cell, seed, args.seconds, "cuda")), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
     return 0

@@ -90,10 +90,10 @@ class Measured:
 
 def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
             t0: float, data_root: Optional[str] = None) -> Measured:
-    """Set-up and the window: the world and sequence from the seed, the
-    warm-up, missions for ``seconds`` (traced: spans, sampled kernel calls
-    and the profiler), then the peak memory read and the program's
-    missions freed."""
+    """Set-up and the window: the world and sequence from the seed (with
+    what the configuration's extensions prepare), the warm-up, missions for
+    ``seconds`` (traced: spans, sampled kernel calls and the profiler), then
+    the peak memory read and the program's missions freed."""
     import torch
 
     from open3d_slam_advanced_rss_2024_public_tpu_torch.utils.config import load_parameters
@@ -103,15 +103,16 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats()
-    config, traffic, sensor = cell.config, cell.traffic, cell.config["sensor"]
+    config, traffic = cell.config, cell.traffic
     params = load_parameters(config["parameters"])
+    exts = spec.extensions(config, cell.root)
     data_dir = os.path.join(data_root or tempfile.gettempdir(), "slam_bench", cell.name)
-    seq = traffic_gen.generate(config, traffic, seed, data_dir, device)
-    s_pick = traffic_gen.seeds(seed, 4)[3]
+    seq = traffic_gen.generate(config, traffic, seed, data_dir, device, exts)
+    s_pick = traffic_gen.seeds(seed, 4)[traffic_gen.CHECK_STREAM]
     picks = np.random.default_rng(s_pick).choice(np.arange(2, len(seq.truth)),
                                                  size=traffic["check_scans"], replace=False)
-    capture = session.Capture(picks)
-    session.warm_up(params, seq, sensor, device, traffic["warmup_scans"])
+    capture = session.Capture(picks, exts)
+    session.warm_up(params, seq, config, device, traffic["warmup_scans"], exts)
     spans = calls = prof = None
     if trace:
         spans = session.Spans(traced=True)
@@ -126,7 +127,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str
             session.sync(device)
         setup["s"] = time.perf_counter() - t0
 
-    window = session.run_window(params, seq, sensor, device, seconds, spans, capture,
+    window = session.run_window(params, seq, config, device, seconds, spans, capture,
                                 on_start=start)
     timeline = None
     if prof is not None:
@@ -153,7 +154,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     m = measure(cell, seed, seconds, trace, device, t0, data_root)
     window, capture, seq, timeline = m.window, m.capture, m.seq, m.timeline
     ctx = Context(window, m.setup_s, m.spans, timeline, m.calls)
-    metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end, ctx)
+    metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end, ctx, cell.root)
     readings = checking.judge(capture, seq, cell.config, device)
     correct, rows = checking.verdict(readings, cell.config["limits"])
     for mission in capture.missions:

@@ -3,8 +3,9 @@ its calls, and what the correctness check needs from each mission.
 
 A mission is what ``frontends/replay.ReplayRunner.run`` does: a fresh
 ``SlamWrapper``, the frontend's iterator over the cell's sequence,
-``set_initial_transform``, ``use_pair_for_registration`` a frame at a
-time, then ``finish_processing``.  The spans wrap the calls into each layer
+``set_initial_transform``, the ``start`` of each of the configuration's
+extensions, ``use_pair_for_registration`` a frame at a time, then
+``finish_processing``.  The spans wrap the calls into each layer
 on the mission's own instances; in a traced run each span ends in
 ``torch.cuda.synchronize()``, so that it holds its layer's device work, and
 is marked in the profiler's timeline.
@@ -18,6 +19,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from . import spec
 
 
 def sync(device) -> None:
@@ -114,10 +117,13 @@ class Solve:
 
 class Capture:
     """What the correctness check reads after the window: the sampled
-    scans of the window's first mission, and every pose-graph solve."""
+    scans of the window's first mission, every pose-graph solve, and the
+    configuration's extensions (``spec.extensions``), whose hooks the
+    missions and the check call."""
 
-    def __init__(self, sample_indices):
+    def __init__(self, sample_indices, extensions=None):
         self.sample_indices = set(int(i) for i in sample_indices)
+        self.extensions = dict(extensions or {})
         self.scans: List[ScanSample] = []
         self.solves: List[Solve] = []
         self.missions: List[dict] = []
@@ -170,15 +176,22 @@ def open_frames(seq, sensor: dict, device):
                           rate_hz=sensor["rate_hz"], device=device)
 
 
-def warm_up(params, seq, sensor: dict, device, n_scans: int) -> None:
+def start_session(slam, frame, seq, config: dict, device, extensions) -> None:
+    """A fresh session's start at its first frame: the initial transform,
+    then each extension's ``start``."""
+    slam.set_initial_transform(frame.odom_pose if frame.odom_pose is not None
+                               else np.eye(4, dtype=np.float32))
+    spec.call(extensions, "start", slam, seq, config, device)
+
+
+def warm_up(params, seq, config: dict, device, n_scans: int, extensions: dict) -> None:
     """One short session of the cell's own shapes."""
     slam = make_slam(params, device)
-    for i, frame in enumerate(open_frames(seq, sensor, device)):
+    for i, frame in enumerate(open_frames(seq, config["sensor"], device)):
         if i == n_scans:
             break
         if i == 0:
-            slam.set_initial_transform(frame.odom_pose if frame.odom_pose is not None
-                                       else np.eye(4, dtype=np.float32))
+            start_session(slam, frame, seq, config, device, extensions)
         slam.use_pair_for_registration(frame.scan, frame.odom_pose, frame.time)
     slam.finish_processing()
     sync(device)
@@ -207,7 +220,7 @@ class Window:
     missions: int
 
 
-def run_window(params, seq, sensor: dict, device, seconds: float, spans: Optional[Spans],
+def run_window(params, seq, config: dict, device, seconds: float, spans: Optional[Spans],
                capture: Capture, on_start=None) -> Window:
     """Missions back to back for ``seconds``; a scan counts if its call
     returned inside the window."""
@@ -223,7 +236,7 @@ def run_window(params, seq, sensor: dict, device, seconds: float, spans: Optiona
         capture.watch_solves(slam)
         if spans is not None:
             spans.wrap(slam)
-        frames = open_frames(seq, sensor, device)
+        frames = open_frames(seq, config["sensor"], device)
         frames = spans.frames(frames) if spans is not None else frames
         n_fed, done = 0, True
         for i, frame in enumerate(frames):
@@ -231,8 +244,7 @@ def run_window(params, seq, sensor: dict, device, seconds: float, spans: Optiona
                 done = False
                 break
             if i == 0:
-                slam.set_initial_transform(frame.odom_pose if frame.odom_pose is not None
-                                           else np.eye(4, dtype=np.float32))
+                start_session(slam, frame, seq, config, device, capture.extensions)
             sample = mission == 0 and i in capture.sample_indices
             if sample:
                 before = _state(slam)

@@ -18,7 +18,7 @@ import dataclasses
 import math
 import os
 import shutil
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,13 @@ class Sequence:
     root: str            # the bag file or the KITTI root
     truth: np.ndarray    # f64[S, 4, 4] sensor pose at each frame
     bytes_written: int
+    extras: Dict[str, object] = dataclasses.field(default_factory=dict)  # by extension
+
+
+# Streams of ``seeds(seed, n)``: the world, the rendering and the odometry's
+# drift (``generate``), the checked scans (``harness.measure``), then one for
+# each extension in the configuration's order.
+CHECK_STREAM, EXTENSION_STREAM = 3, 4
 
 
 def seeds(seed: int, n: int) -> List[np.random.SeedSequence]:
@@ -276,8 +283,11 @@ def write_kitti(root: str, world: torch.Tensor, truth: np.ndarray, sensor: dict,
     return Sequence(kind="kitti", root=root, truth=truth, bytes_written=total)
 
 
-def generate(config: dict, traffic: dict, seed: int, out_dir: str, device) -> Sequence:
-    """The cell's sequence under ``out_dir`` (emptied first)."""
+def generate(config: dict, traffic: dict, seed: int, out_dir: str, device,
+             extensions: Optional[Dict[str, object]] = None) -> Sequence:
+    """The cell's sequence under ``out_dir`` (emptied first); then each
+    extension's ``prepare(config, traffic, world, truth, out_dir, ss)``,
+    kept in ``extras`` under its name."""
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     s_world, s_render, s_odom = seeds(seed, 3)
@@ -289,7 +299,14 @@ def generate(config: dict, traffic: dict, seed: int, out_dir: str, device) -> Se
     if sensor["format"] == "rosbag":
         odom = drifting_odometry(truth, sensor["odometry_drift_m"],
                                  sensor["odometry_drift_rad"], s_odom)
-        return write_bag(os.path.join(out_dir, "sequence.bag"), world, truth, odom, sensor, gen)
-    if sensor["format"] == "kitti":
-        return write_kitti(os.path.join(out_dir, "kitti"), world, truth, sensor, gen)
-    raise ValueError(f"unknown sensor format {sensor['format']!r}")
+        seq = write_bag(os.path.join(out_dir, "sequence.bag"), world, truth, odom, sensor, gen)
+    elif sensor["format"] == "kitti":
+        seq = write_kitti(os.path.join(out_dir, "kitti"), world, truth, sensor, gen)
+    else:
+        raise ValueError(f"unknown sensor format {sensor['format']!r}")
+    exts = extensions or {}
+    streams = seeds(seed, EXTENSION_STREAM + len(exts))[EXTENSION_STREAM:]
+    for (name, module), ss in zip(exts.items(), streams):
+        if hasattr(module, "prepare"):
+            seq.extras[name] = module.prepare(config, traffic, world, truth, out_dir, ss)
+    return seq
